@@ -1,10 +1,10 @@
-"""beamforming_lk_tpu — a TPU-native acoustic-array beamforming framework.
+"""beamforming_lk_tpu — an acoustic-array beamforming framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``acoustic-warfare/beamforming-lk`` (a real-time C++ delay-and-sum
 beamformer for 8x8 MEMS microphone arrays):
 
-- ``ops``      : steering geometry, fractional-delay DAS kernels (jnp + Pallas)
+- ``ops``      : steering geometry, fractional-delay DAS kernels (jnp)
 - ``models``   : MIMO heatmap, gradient-ascent tracker swarm, MISO listener,
                  Kalman filter, calibration, triangulation/track fusion
 - ``io``       : block pipeline, synthetic sources, pcap/UDP ingest, WAV out
@@ -15,7 +15,7 @@ Design stance (vs the reference's threads + mmap ring buffers): each
 256-sample block is one step through jitted functions over arrays shaped
 ``[channels, time] -> [directions]``; the heatmap, the tracker's monopulse
 probes and the MISO beam all route through ONE delay-and-sum kernel, lowered
-to an MXU-friendly shift-matmul.
+to a dense shift-matmul.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Application layer: per-array orchestration (AWPU), CLI, rendering.
 
-TPU re-design of the reference's ``src/aw_processing_unit`` +
+Re-design of the reference's ``src/aw_processing_unit`` +
 ``src/aw_control_unit``: instead of one thread per worker sharing mmap ring
 buffers behind a condvar barrier (``src/dsp/worker.h:212-224``,
 ``src/fpga/pipeline.cpp:210-238``), each 256-sample block is ONE step

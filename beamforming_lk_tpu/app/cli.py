@@ -19,7 +19,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="beamforming_lk_tpu",
-        description="TPU-native acoustic-array beamformer",
+        description="Acoustic-array beamformer (JAX)",
     )
     # Reference flags (src/main.cpp:19-97)
     p.add_argument("--mimo", action="store_true", help="enable MIMO heatmap")
@@ -84,18 +84,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mvdr-refresh", type=int, default=1,
                    help="recompute the Capon solve only every Nth block "
                         "(the covariance EMA still updates every block) — "
-                        "the display-rate decimation that breaks the "
-                        "256-mic Cholesky cost wall (docs/performance.md)")
+                        "the display-rate decimation of the per-bin "
+                        "Cholesky solve, the dominant cost at 256 mics")
     p.add_argument("--music-solver", choices=["subspace", "eigh"],
                    default="subspace",
                    help="MUSIC decomposition: 'subspace' (default; "
-                        "warm-started signal-subspace tracking, ~80x "
-                        "faster) or 'eigh' (exact full "
-                        "eigendecomposition per bin)")
+                        "warm-started signal-subspace tracking) or 'eigh' "
+                        "(exact full eigendecomposition per bin)")
     p.add_argument("--realtime", action="store_true",
-                   help="deployment profile: bf16 compute + fft heatmap + "
-                        "2-iteration tracker cadence (~3x throughput, "
-                        "see docs/performance.md)")
+                   help="deployment profile: bf16 compute + fft heatmap "
+                        "every 3rd block + 2-iteration tracker cadence "
+                        "(Config.realtime)")
     p.add_argument("--phat", action="store_true",
                    help="SRP-PHAT spectral whitening for the heatmap "
                         "(robust localization; implies --heatmap-backend fft)")
@@ -106,8 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "lattice arrays, ~20x fewer FLOPs)")
     p.add_argument("--heatmap-chunk", type=int, default=0,
                    help="heatmap-only chunked streaming: beamform this many "
-                        "blocks per device dispatch (~2x replay throughput "
-                        "at 8 on TPU v5e; needs --mimo without "
+                        "blocks per device dispatch (needs --mimo without "
                         "--tracking/--miso)")
     p.add_argument("--heatmap-every", type=int, default=None,
                    help="display-rate heatmap decimation: recompute the "
@@ -201,6 +199,17 @@ def make_sources(args, cfg, pipelines):
 
 
 def main(argv=None) -> int:
+    from beamforming_lk_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Parse ``argv``, build the :class:`ControlUnit`, drive its sources to
+    the end and print the CLI's report.  Returns ``(unit, summary)`` so an
+    in-process caller can read the pipelines' last outputs and metrics."""
     args = build_parser().parse_args(argv)
 
     from beamforming_lk_tpu.config import (
@@ -331,14 +340,15 @@ def main(argv=None) -> int:
                 )
     # Offline sources can run many blocks per dispatch (the faster-than-
     # real-time udpreplay analog); live sources stay per-block.  Heatmap-
-    # only pipelines batch at the heatmap chunk; fused pipelines at the
-    # fused chunk (the chunked swarm kernel, docs/performance.md).
+    # only pipelines batch at the heatmap chunk.
     batch = args.replay_batch
-    if batch <= 0 and args.source in ("synthetic", "pcap"):
-        if cfg.mimo.heatmap_chunk > 1 and not (args.tracking or args.miso):
-            batch = cfg.mimo.heatmap_chunk
-        elif cfg.dsp.fused_chunk > 1:
-            batch = cfg.dsp.fused_chunk
+    if (
+        batch <= 0
+        and args.source in ("synthetic", "pcap")
+        and cfg.mimo.heatmap_chunk > 1
+        and not (args.tracking or args.miso)
+    ):
+        batch = cfg.mimo.heatmap_chunk
     batch = max(batch, 1)
     with trace(args.profile):
         summary = unit.run(
@@ -379,7 +389,7 @@ def main(argv=None) -> int:
         best = unit.best_track()
         if best is not None:
             print(f"best track: {np.round(best.position, 2)} hits={best.hits}")
-    return 0
+    return unit, summary
 
 
 if __name__ == "__main__":

@@ -129,7 +129,7 @@ class ControlUnit:
         """Feed one [C, T] block per array; returns per-array outputs.
 
         ``sync=False`` leaves the dispatch asynchronous — the device queue
-        absorbs host jitter (the TPU-native replacement for the reference's
+        absorbs host jitter (the replacement for the reference's
         condvar barrier tolerance; SURVEY §7 "real-time host-device
         feeding").  Latency metrics are only meaningful on synced blocks.
         """

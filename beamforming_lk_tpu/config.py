@@ -60,27 +60,18 @@ class DspConfig:
     use_bandpass: bool = True    # 3-tap MA bandpass before power
     normalization: float = float(2 ** 23)  # int24 -> float scale (pipeline.h:25)
     # Matmul input dtype for the MIMO heatmap contraction: "float32"
-    # (full-precision parity path) or "bfloat16" (~6x faster on the MXU,
-    # <=~3e-3 relative error on heatmap powers — well inside the
+    # (full-precision parity path, run at HIGHEST precision so no TF32
+    # rounding creeps in) or "bfloat16" (bf16 inputs, f32 accumulation;
+    # <=~5e-3 relative error on heatmap powers — well inside the
     # reference's own -Ofast float32 envelope).
     compute: str = "float32"
     # Matmul input dtype for the tracker/MISO monopulse PROBE beams (the
     # sequential swarm scan that dominates the fused step).  Probe powers
     # only feed the monopulse discriminants — normalized power differences
     # — so "bfloat16" keeps tracking accuracy (validated by
-    # benchmarks/tracking_accuracy.py) while running the probe matmuls at
-    # full MXU rate.  The MISO *audio* beam stays float32 either way.
+    # benchmarks/tracking_accuracy.py).  The MISO *audio* beam stays
+    # float32 either way.
     probe_compute: str = "float32"
-    # Chunked streaming for the FUSED step (heatmap + tracker + MISO):
-    # AwpuPipeline.process_blocks runs this many consecutive blocks' whole
-    # swarm updates as ONE pallas_call (swarm_chunk_pallas) with the
-    # window folds / RNG / reference powers batched per chunk — the
-    # throughput/replay shape (per-block outputs identical to streaming,
-    # pinned by test_fused_chunk_matches_per_block).  Requires the Pallas
-    # chain configuration on a single device; with the heatmap on, must be
-    # a multiple of MimoConfig.heatmap_every (the decimation phase stays
-    # chunk-aligned).  <= 1 disables.
-    fused_chunk: int = 0
 
     @property
     def block_seconds(self) -> float:
@@ -111,16 +102,15 @@ class MimoConfig:
     # heatmap only every k-th block (lax.cond; carried powers are reused
     # in between).  The reference computes a heatmap per block but its UI
     # consumes ~60 fps (aw_control_unit.cpp:189) — every 3rd block at the
-    # 190.7 block/s cadence — so 3 is display-rate-faithful and removes
-    # ~2/3 of the per-block heatmap cost (docs/performance.md).  1 =
-    # every block (reference worker behavior).  Ignored by the chunked
-    # heatmap-only replay path (chunking already amortizes it).
+    # 190.7 block/s cadence — so 3 is display-rate-faithful and skips 2 of
+    # every 3 heatmap computations.  1 = every block (reference worker
+    # behavior).  Ignored by the chunked heatmap-only replay path
+    # (chunking already amortizes it).
     heatmap_every: int = 1
     # Chunked streaming for heatmap-only pipelines (tracker and MISO off):
     # AwpuPipeline.process_blocks beamforms this many blocks' windows per
     # dispatch — bit-identical per-block powers, matmuls chunk-x bigger
-    # (~2x throughput measured on v5e at chunk 8; the faster-than-real-time
-    # replay shape).  <= 1 disables.
+    # (the faster-than-real-time replay shape).  <= 1 disables.
     heatmap_chunk: int = 0
 
     @property
@@ -162,12 +152,6 @@ class TrackerConfig:
     # trackers through; 0.1 cuts them while keeping real sources within
     # 10 dB.  Set 0.0 for exact reference behavior.
     min_power_fraction: float = 0.1
-    # Monopulse sub-step chain backend for the fused step: "xla" (portable;
-    # works sharded / FIR / horizontal probes) or "pallas" (one TPU kernel
-    # per swarm iteration, ~2x faster per round — ops/pallas_tracker.py;
-    # requires linear interp + quadrant probes + unsharded channels, falls
-    # back to "xla" otherwise; runs interpreted off-TPU).
-    probe_kernel: str = "xla"
 
     @property
     def theta_limit(self) -> float:
@@ -220,31 +204,20 @@ class Config:
     pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
 
     def realtime(self) -> "Config":
-        """The measured deployment profile (docs/performance.md): bf16
-        compute, separable-fft heatmap, display-rate heatmap decimation
-        (recompute every 3rd block — the reference UI consumes ~every 3rd
-        map at 60 fps, aw_control_unit.cpp:189), and the reference's real
-        until-next-block tracker cadence (~2 iterations,
-        gradient_ascend.cpp:315) — ~5x the default profile's fused-step
-        throughput with validated tracking quality.  Defaults stay on the
-        f32/dense/10-iteration parity profile."""
-        import jax  # lazy: config stays importable without a backend
-
-        on_tpu = jax.default_backend() == "tpu"
+        """The deployment profile: bf16 compute, separable-fft heatmap,
+        display-rate heatmap decimation (recompute every 3rd block — the
+        reference UI consumes ~every 3rd map at 60 fps,
+        aw_control_unit.cpp:189), and the reference's real until-next-block
+        tracker cadence (~2 iterations, gradient_ascend.cpp:315), with
+        tracking quality validated by benchmarks/tracking_accuracy.py.
+        Defaults stay on the f32/dense/10-iteration parity profile."""
         return dataclasses.replace(
             self,
             dsp=dataclasses.replace(
-                self.dsp, compute="bfloat16", probe_compute="bfloat16",
-                # Replay/batch processing routes through the chunked fused
-                # kernel (95x measured vs 64x per-block); live per-block
-                # streaming is unaffected (process_block stays per block).
-                fused_chunk=12 if on_tpu else self.dsp.fused_chunk,
+                self.dsp, compute="bfloat16", probe_compute="bfloat16"
             ),
             mimo=dataclasses.replace(
                 self.mimo, backend="fft", heatmap_every=3
             ),
-            tracker=dataclasses.replace(
-                self.tracker, iterations=2,
-                probe_kernel="pallas" if on_tpu else "xla",
-            ),
+            tracker=dataclasses.replace(self.tracker, iterations=2),
         )

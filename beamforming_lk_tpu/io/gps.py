@@ -5,7 +5,7 @@ gracefully if unavailable (``src/aw_control_unit/aw_control_unit.cpp:468-482``),
 then reads position/heading/speed for the 1 Hz telemetry publish
 (``aw_control_unit.cpp:444-466``) and for geo-referencing the best track
 (``src/target_handler/target_handler.cpp:196-206``).  gpsd natively speaks
-newline-delimited JSON over TCP, so the TPU framework needs no libgps: this
+newline-delimited JSON over TCP, so this framework needs no libgps: this
 is a small non-blocking reader of ``TPV`` reports.
 
 Protocol: on connect the daemon sends a ``VERSION`` object; the client sends

@@ -2,7 +2,7 @@
 
 The reference keeps per-mic mirrored-mmap ring buffers that producer and
 worker threads race on (``src/fpga/streams.hpp:54-183``; the race tolerance
-is by construction, SURVEY §5).  The TPU-native replacement is an immutable
+is by construction, SURVEY §5).  The replacement here is an immutable
 ``[channels, history]`` array carried through the jitted step: pushing a
 block is a shift-and-append, which XLA lowers to cheap fused slices, and
 every consumer of a step sees one consistent snapshot — the whole class of
@@ -73,8 +73,7 @@ def ring_windows(
     pushing block ``j`` of the chunk — chunked (throughput) processing of a
     recorded or paced stream computes identical per-block outputs to
     block-at-a-time streaming, with every downstream matmul batched
-    ``chunk``-wide (the deployment shape of the WAN-tunnel soak benchmark
-    and of faster-than-real-time replay).
+    ``chunk``-wide (the shape of faster-than-real-time replay).
     """
     h = history.shape[-1]
     win = block_size + shift_range

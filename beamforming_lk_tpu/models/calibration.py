@@ -5,8 +5,8 @@ Vectorized re-design of ``AWProcessingUnit::calibrate``
 power over a full ring of history, per-antenna median, outlier rejection,
 and a power-correction gain.  Where the reference compacts surviving
 channels into an ``index[]`` list (dynamic length), we emit a static-shape
-validity mask that folds directly into the DAS stencil — the TPU-friendly
-equivalent (zeroed channels cost nothing extra on the MXU).
+validity mask that folds directly into the DAS stencil — the static-shape
+equivalent (zeroed channels cost nothing extra in the matmul).
 
 Note the reference computes ``power_correction_mask`` but never applies it
 in any worker (SURVEY §2.1); we keep gains available and actually support

@@ -10,8 +10,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# float32 products at full precision (no TF32 rounding on the GPU).
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 class KalmanState(NamedTuple):
@@ -57,13 +63,13 @@ class KalmanFilter3D:
     def update(self, state: KalmanState, measurement) -> KalmanState:
         """Predict + correct (kf.h:85-98)."""
         a, q, h, r = self.a, self.q, self.h, self.r
-        x = a @ state.x
-        p = a @ state.p @ a.T + q
-        s = h @ p @ h.T + r
-        k = p @ h.T @ jnp.linalg.inv(s)
-        y = jnp.asarray(measurement, jnp.float32) - h @ x
-        x = x + k @ y
-        p = (jnp.eye(9, dtype=jnp.float32) - k @ h) @ p
+        x = _mm(a, state.x)
+        p = _mm(_mm(a, state.p), a.T) + q
+        s = _mm(_mm(h, p), h.T) + r
+        k = _mm(_mm(p, h.T), jnp.linalg.inv(s))
+        y = jnp.asarray(measurement, jnp.float32) - _mm(h, x)
+        x = x + _mm(k, y)
+        p = _mm(jnp.eye(9, dtype=jnp.float32) - _mm(k, h), p)
         return KalmanState(x=x, p=p)
 
     def position(self, state: KalmanState):
@@ -79,8 +85,8 @@ class KalmanFilter3D:
         xn = state.x
         an = self.a
         for _ in range(int(steps)):
-            xn = an @ xn
-            an = an @ self.a
+            xn = _mm(an, xn)
+            an = _mm(an, self.a)
         return xn[:3]
 
     def predict_time(self, state: KalmanState, t: float):
@@ -95,6 +101,6 @@ class KalmanFilter3D:
         xn = state.x
         an = self.a
         for _ in range(int(t) + 1):
-            xn = an @ xn
-            an = an @ self.a
+            xn = _mm(an, xn)
+            an = _mm(an, self.a)
         return xn[:3]

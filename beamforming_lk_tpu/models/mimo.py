@@ -3,7 +3,7 @@
 Re-design of the reference's ``MIMOWorker`` (``src/dsp/mimo.cpp``): the
 per-pixel scalar loop over ``rows*cols`` directions x 64 mics x 256 samples
 (mimo.cpp:121-151) becomes one precomputed stencil tensor and a single
-MXU matmul per block via :mod:`beamforming_lk_tpu.ops.delay`.
+matmul per block via :mod:`beamforming_lk_tpu.ops.delay`.
 """
 
 from __future__ import annotations
@@ -74,8 +74,8 @@ def make_mimo_model(
     """Build the static per-direction DAS stencil for the heatmap grid
     (the analog of ``computeDelayLUT``, mimo.cpp:20-59)."""
     theta, phi = make_mimo_grid(mimo_cfg)
-    # Static LUT: build entirely on host (numpy) and device_put once — the
-    # traced builders would round-trip per op on remote-device setups.
+    # Static LUT: build entirely on host (numpy) and device_put once — no
+    # per-op eager dispatches at build time.
     delays = ant.steering_delays_np(
         np.asarray(points), theta, phi, array_cfg.samples_per_meter
     )

@@ -13,7 +13,7 @@ aperture's beamwidth (super-resolution).  Incoherent wideband combining:
 bins are averaged after the per-bin pseudo-spectrum, the standard
 incoherent-MUSIC recipe.
 
-Complex-free on every backend (TPU included): the Hermitian covariance
+Complex-free: the Hermitian covariance
 ``R = Re + i Im`` is embedded as the real symmetric ``M = [[Re, -Im],
 [Im, Re]]`` whose eigenvalues are R's, each doubled, and whose eigenspaces
 are the embeddings of R's — so the noise projector of ``M`` (the 2(C-K)
@@ -22,17 +22,16 @@ weakest eigenvectors) computes exactly the complex noise-projection norm:
 
 Two solvers:
 
-- ``solver="subspace"`` (default, the TPU streaming design): instead of a
+- ``solver="subspace"`` (default, the streaming design): instead of a
   full batched ``eigh`` of the [F, 2C, 2C] embedding per block — QR
-  iterations XLA serializes, ~0.7x real time at 64 mics — track only the
+  iterations XLA serializes — track only the
   2K-dimensional SIGNAL subspace with warm-started orthogonal iteration:
   the state carries last block's orthonormal basis, and because the EMA
   covariance moves slowly per block, 2 multiply+QR rounds/block keep it
   converged (a cold start gets extra rounds).  The noise-projection norm
   uses the complement identity ``||En^T a||^2 = ||a||^2 - ||Es^T a||^2``,
   so the per-direction projection stage also shrinks from 2(C-K) to 2K
-  columns (~20x fewer MACs at K=3, C=64).  Measured ~25x faster than
-  eigh at the 64-mic app aperture.
+  columns (~20x fewer MACs at K=3, C=64).
 - ``solver="eigh"``: the exact full eigendecomposition (used as truth in
   tests; tests/test_music.py pins subspace-vs-eigh spectrum parity).
 """
@@ -48,6 +47,7 @@ import numpy as np
 from beamforming_lk_tpu.config import ArrayConfig
 from beamforming_lk_tpu.models.mvdr import (
     _attach_scan,
+    _snapshot_covariance,
     _stft_snapshots,
     dft_tables,
     hermitian_embed,
@@ -143,8 +143,8 @@ def _make_music_impl(
     subspace_iters=2, axis_name=None,
 ):
     """Per-block MUSIC update with operands (steering planes, DFT tables)
-    as explicit arguments — shared by :func:`make_music_step` and the TPU
-    benchmark (which builds the 95 MB steering planes on device).
+    as explicit arguments — shared by :func:`make_music_step` and the
+    estimator benchmark (which builds the 95 MB steering planes on device).
 
     ``axis_name`` marks the bin axis as a mesh shard
     (:func:`make_sharded_music_step`): the SNR bin-weight normalization
@@ -152,6 +152,7 @@ def _make_music_impl(
     optional trailing operand, 0 for padding bins) keeps padded shards
     silent."""
     n_noise = 2 * (c - k)
+    hi = jax.lax.Precision.HIGHEST
 
     def _eigh_subspaces(m, state):
         # Exact path: full ascending eigendecomposition of the embedding;
@@ -176,7 +177,7 @@ def _make_music_impl(
         # gets extra rounds.
         def rounds(n):
             def body(_, q):
-                z = jnp.einsum("fab,fbk->fak", m, q)
+                z = jnp.einsum("fab,fbk->fak", m, q, precision=hi)
                 q, _ = jnp.linalg.qr(z)
                 return q
             return jax.lax.fori_loop(0, n, body, state.basis)
@@ -186,22 +187,17 @@ def _make_music_impl(
             lambda: rounds(subspace_iters),
             lambda: rounds(max(subspace_iters, 8)),
         )
-        mq = jnp.einsum("fab,fbk->fak", m, q)
-        sig_vals = jnp.einsum("fak,fak->fk", q, mq)  # Rayleigh quotients
+        mq = jnp.einsum("fab,fbk->fak", m, q, precision=hi)
+        sig_vals = jnp.einsum(
+            "fak,fak->fk", q, mq, precision=hi
+        )                                            # Rayleigh quotients
         trace = jnp.trace(m, axis1=-2, axis2=-1)     # [F]
         noise_mean = (trace - jnp.sum(sig_vals, axis=-1)) / n_noise
         return q, sig_vals, noise_mean, q
 
     def impl(state: MusicState, block, v_local, dft_local, binw_local=None):
         xr, xi, n_frames = _stft_snapshots(block, dft_local, frame_size, hop, mask)
-        r_re = (
-            jnp.einsum("fcm,fdm->fcd", xr, xr)
-            + jnp.einsum("fcm,fdm->fcd", xi, xi)
-        ) / n_frames
-        r_im = (
-            jnp.einsum("fcm,fdm->fcd", xi, xr)
-            - jnp.einsum("fcm,fdm->fcd", xr, xi)
-        ) / n_frames
+        r_re, r_im = _snapshot_covariance(xr, xi, n_frames)
         warm = state.count > 0
         alpha = jnp.where(warm, ema_alpha, 1.0).astype(jnp.float32)
         cov_re = (1.0 - alpha) * state.cov_re + alpha * r_re
@@ -214,7 +210,9 @@ def _make_music_impl(
             # f32 precision (no cancellation), affordable because eigh is
             # the slow exact solver anyway.
             en, sig_vals, noise_mean, basis = _eigh_subspaces(m, state)
-            yn = jnp.einsum("fck,fdc->fdk", en, v_emb)   # [F, D, 2(C-K)]
+            yn = jnp.einsum(
+                "fck,fdc->fdk", en, v_emb, precision=hi
+            )                                            # [F, D, 2(C-K)]
             denom = jnp.sum(yn * yn, axis=-1)
         else:
             es, sig_vals, noise_mean, basis = _tracked_subspaces(m, state)
@@ -225,7 +223,9 @@ def _make_music_impl(
             # subtraction cancels catastrophically near peaks (||v||^2 ~ 2C),
             # so the floor below reflects the real f32 resolution ~C*eps
             # rather than pretending to 1e-12.
-            y = jnp.einsum("fck,fdc->fdk", es, v_emb)    # [F, D, 2K]
+            y = jnp.einsum(
+                "fck,fdc->fdk", es, v_emb, precision=hi
+            )                                            # [F, D, 2K]
             denom = jnp.sum(v_emb * v_emb, axis=-1) - jnp.sum(y * y, axis=-1)
         # SNR-weighted incoherent combining: weight each bin by its signal
         # eigenvalue mass above the noise floor, so noise-only bins (whose

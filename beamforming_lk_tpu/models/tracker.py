@@ -91,10 +91,8 @@ def _empty_particles(n: int) -> Particles:
 
 
 def _random_directions(key, n: int, theta_limit: float):
-    """Uniform placement in the search domain (particle.cpp:11-14).
-
-    One batched draw (threefry invocations are the measured hot glue of
-    the deployment step — scripts/profile_glue.py)."""
+    """Uniform placement in the search domain (particle.cpp:11-14), as one
+    batched draw."""
     u = jax.random.uniform(key, (2, n), jnp.float32)
     return u[0] * theta_limit, u[1] * (2.0 * np.pi)
 
@@ -250,28 +248,6 @@ def _monopulse_step(
     )
 
 
-def _use_pallas_chain(cfg: TrackerConfig, dsp: DspConfig, axis_name) -> bool:
-    """Gate for the Pallas monopulse-chain backend, with a visible fallback.
-
-    The kernel (ops/pallas_tracker.py) covers both interpolation modes
-    (linear and the in-kernel windowed-sinc FIR stencil) and both probe
-    layouts (quadrant and nearby) on unsharded channels.  A channel-sharded
-    mesh silently ran the ~2x slower XLA chain before; now the fallback is
-    announced once per step build (mirroring the fft->dense heatmap note,
-    app/awpu.py)."""
-    supported = axis_name is None
-    if cfg.probe_kernel == "pallas" and not supported:
-        import sys
-
-        why = "sharded channels"
-        print(
-            f"tracker probe_kernel 'pallas' unavailable ({why}); "
-            "using the XLA monopulse chain (see docs/performance.md)",
-            file=sys.stderr,
-        )
-    return cfg.probe_kernel == "pallas" and supported
-
-
 def _merge_trackers(trackers: Particles, tracking, start, closeness: float):
     """Absorb pairwise-close trackers, oldest wins
     (gradient_ascend.cpp:332-351)."""
@@ -296,17 +272,31 @@ def _merge_trackers(trackers: Particles, tracking, start, closeness: float):
     return tracking & ~stop
 
 
+def _publish(trackers: Particles, tracking, mean, reference,
+             cfg: TrackerConfig):
+    """Prune weak/diverged trackers before publishing
+    (gradient_ascend.cpp:398-408), plus the sidelobe gate
+    (TrackerConfig.min_power_fraction)."""
+    weak = (
+        (trackers.radius < mean)
+        | (trackers.radius < reference)
+        | (trackers.error > cfg.error_threshold)
+    )
+    tracking = tracking & ~weak
+    if cfg.min_power_fraction > 0.0:
+        strongest = jnp.max(jnp.where(tracking, trackers.radius, 0.0))
+        tracking = tracking & (
+            trackers.radius >= cfg.min_power_fraction * strongest
+        )
+    return tracking
+
+
 def _swarm_jumps(key, n_iter: int, n_seekers: int, jump: float):
     """Pre-generate ALL iterations' seeker jump offsets as ONE batched
     uniform draw.  Returns (next_key, jt[n_iter, Ns], jp[n_iter, Ns]).
 
-    Both chain backends consume THIS schedule — the Pallas kernel takes
-    the arrays as operands, the XLA iteration scan indexes them per
-    iteration — so they follow the same random trajectory (pinned by
-    ``test_whole_swarm_kernel_matches_xla_iteration_scan``).  A per-
-    iteration ``split`` scan here was the measured hot glue of the
-    deployment step (~24 us/block of threefry on v5e,
-    scripts/profile_glue.py); one batched draw is ~free."""
+    The iteration scan indexes the arrays per iteration; one batched draw
+    replaces a threefry ``split`` per iteration."""
     key, k1 = jax.random.split(key)
     u = (
         jax.random.uniform(k1, (2, n_iter, n_seekers), jnp.float32) * 2.0
@@ -357,27 +347,9 @@ def make_swarm_step_impl(
         if probe_span is None
         else min(probe_span, dsp.shift_range)
     )
-    use_pallas_chain = _use_pallas_chain(cfg, dsp, axis_name)
 
     t_len = dsp.block_size
-    nt, ns = cfg.n_trackers, cfg.n_seekers
-    # Per-particle dynamics + family one-hots for the whole-swarm kernel's
-    # [trackers | seekers] row layout (no miso row in the unfused impl).
-    rates_ts = jnp.asarray(
-        [cfg.tracker_step_gain * cfg.tracker_spread] * nt
-        + [cfg.seeker_step_gain * cfg.seeker_spread] * ns,
-        jnp.float32,
-    )
-    spreads_ts = jnp.asarray(
-        [cfg.tracker_spread] * nt + [cfg.seeker_spread] * ns, jnp.float32
-    )
-    fam_ts_np = np.zeros((3, nt + ns), np.float32)
-    fam_ts_np[0, :nt] = 1.0
-    fam_ts_np[1, nt:] = 1.0
-    fam_ts = jnp.asarray(fam_ts_np)
-    # Sub-steps j > 0 move trackers only (seekers ride j == 0), so the
-    # kernel can run them on the tracker prefix when iterations unroll.
-    prefix_ts = ((nt + 7) // 8) * 8 if cfg.iterations <= 4 else 0
+    ns = cfg.n_seekers
 
     def step(state: SwarmState, window, block_index, points, channel_mask):
         # Hoist the probe-window unfold (and compute-dtype cast) out of the
@@ -394,21 +366,6 @@ def make_swarm_step_impl(
         mono = functools.partial(
             base_mono, points=points, channel_mask=channel_mask, unfolded=unf
         )
-        if use_pallas_chain:
-            from beamforming_lk_tpu.ops import pallas_tracker as ptk
-
-            mask_row = (
-                jnp.ones((1, points.shape[1]), jnp.float32)
-                if channel_mask is None
-                else channel_mask.reshape(1, -1).astype(jnp.float32)
-            )
-            xyz = jnp.concatenate([points * spm, mask_row], axis=0)
-            # Bandpass once on the compact window, unfold straight into the
-            # s-major kernel layout (bandpass commutes with the unfold —
-            # bit-identical columns, ~span-x less work than folding the
-            # unfolded copy), THEN drop to the probe compute dtype.
-            win_bp = ptk.bandpass_smaj_window(pw, span_eff).astype(unf.dtype)
-            interpret = jax.default_backend() != "tpu"
 
         # --- Reference power: bandpass power of channel 0's raw block
         # (gradient_ascend.cpp:304-313). The beamformed block sits at window
@@ -434,59 +391,10 @@ def make_swarm_step_impl(
         mean = state.mean
 
         # Pre-generate ALL iterations' seeker jump offsets (one batched
-        # draw; both chain backends consume this same schedule).
+        # draw).
         key, jts, jps = _swarm_jumps(
             key, cfg.iterations, ns, cfg.theta_limit / 2.0
         )
-
-        if use_pallas_chain:
-            # Whole swarm update — all iterations' sub-step chains and their
-            # merge/jump/promote boundaries — in ONE pallas_call (see
-            # make_fused_step_impl for the schedule notes).
-            zt = jnp.zeros((cfg.iterations, nt), jnp.float32)
-            jt_full = jnp.concatenate([zt, jts], axis=1)
-            jp_full = jnp.concatenate([zt, jps], axis=1)
-            pad_s = jnp.zeros((ns,), jnp.float32)
-            comb = jax.tree.map(
-                lambda *leaves: jnp.concatenate(leaves), trackers, seekers
-            )
-            tgt = jnp.stack([
-                jnp.concatenate([state.target_theta, pad_s]),
-                jnp.concatenate([state.target_phi, pad_s]),
-                jnp.concatenate(
-                    [state.target_valid.astype(jnp.float32), pad_s]
-                ),
-            ])
-            (th, ph, gt, gp, rad, err, trk_o, start_o, mean) = (
-                ptk.swarm_chain_pallas(
-                    xyz, win_bp, comb.theta, comb.phi, rates_ts, spreads_ts,
-                    (comb.grad_theta, comb.grad_phi, comb.radius,
-                     comb.error),
-                    fam_ts,
-                    jnp.concatenate(
-                        [tracking.astype(jnp.float32), pad_s]
-                    ),
-                    jnp.concatenate([start, pad_s]),
-                    tgt, jt_full, jp_full, block_index, reference,
-                    n_iter=cfg.iterations, n_sub=cfg.tracker_steps,
-                    refine=0, n_trackers=nt, span=span_eff,
-                    theta_limit=cfg.theta_limit, divisor=float(t_len),
-                    closeness=cfg.tracker_closeness,
-                    error_threshold=cfg.error_threshold,
-                    interpret=interpret,
-                    probe_layout=cfg.probe_layout,
-                    taps=taps, interp=dsp.interp,
-                    fir_phases=dsp.fir_phases,
-                    min_power_fraction=cfg.min_power_fraction,
-                    prefix_rows=prefix_ts,
-                )
-            )
-            combo = Particles(th, ph, gt, gp, rad, err)
-            trackers = jax.tree.map(lambda x: x[:nt], combo)
-            seekers = jax.tree.map(lambda x: x[nt:], combo)
-            # trk_o is POST-prune (the publish boundary runs in-kernel).
-            tracking = trk_o[:nt] > 0.5
-            start = start_o[:nt]
 
         def iteration(carry, jump_i):
             seekers, trackers, tracking, start, mean = carry
@@ -557,27 +465,12 @@ def make_swarm_step_impl(
             mean = jnp.sum(jnp.where(valid, seekers.radius, 0.0)) / n_valid
             return (seekers, trackers, tracking, start, mean), None
 
-        if not use_pallas_chain:
-            (seekers, trackers, tracking, start, mean), _ = jax.lax.scan(
-                iteration,
-                (seekers, trackers, tracking, start, mean),
-                (jts, jps),
-            )
-            # Publish: prune weak/diverged trackers
-            # (gradient_ascend.cpp:398-408), plus the sidelobe gate
-            # (TrackerConfig.min_power_fraction).  The Pallas path runs
-            # this same boundary IN-KERNEL (swarm_chain_pallas epilogue).
-            weak = (
-                (trackers.radius < mean)
-                | (trackers.radius < reference)
-                | (trackers.error > cfg.error_threshold)
-            )
-            tracking = tracking & ~weak
-            if cfg.min_power_fraction > 0.0:
-                strongest = jnp.max(jnp.where(tracking, trackers.radius, 0.0))
-                tracking = tracking & (
-                    trackers.radius >= cfg.min_power_fraction * strongest
-                )
+        (seekers, trackers, tracking, start, mean), _ = jax.lax.scan(
+            iteration,
+            (seekers, trackers, tracking, start, mean),
+            (jts, jps),
+        )
+        tracking = _publish(trackers, tracking, mean, reference, cfg)
         targets = Targets(
             theta=trackers.theta,
             phi=trackers.phi,
@@ -630,11 +523,10 @@ def make_fused_step_impl(
       - per-particle rate/spread vectors give each family its dynamics
 
     The schedule processes exactly the same particle rows as the unfused
-    impls (measured on TPU: the swarm chain is row-throughput bound, NOT
-    dispatch-latency bound, so padding every dispatch to the full combined
-    batch with masked-off rows is a net loss — ~1.6x slower).  Group sizes
-    are static per sub-step index, so the inner loop is a short unrolled
-    Python loop rather than a ``lax.scan``; the dispatch count drops from
+    impls (no dispatch is padded to the full combined batch with
+    masked-off rows).  Group sizes are static per sub-step index, so the
+    inner loop is a short unrolled Python loop rather than a ``lax.scan``;
+    the dispatch count drops from
     ``iterations*(tracker_steps+1) + miso_refine_steps + 1`` to
     ``iterations*tracker_steps + 1``.  The window unfold and compute-dtype
     cast are hoisted out of the chain (loop-invariant), and the MISO audio
@@ -682,17 +574,10 @@ def make_fused_step_impl(
     tracker_rate = cfg.tracker_step_gain * cfg.tracker_spread
     seeker_rate = cfg.seeker_step_gain * cfg.seeker_spread
     miso_rate = tracker_rate / 3.0                       # miso.cpp:39-40
-    # Monopulse chain backend: the Pallas kernel runs a whole iteration's
-    # sub-step chain as ONE TPU program (~2x faster per round,
-    # ops/pallas_tracker.py); it covers the deployment configuration and
-    # falls back to the XLA chain otherwise (sharded channels, FIR interp,
-    # horizontal probes).
-    use_pallas_chain = _use_pallas_chain(cfg, dsp, axis_name)
     # Per-particle dynamics for the two mixed-family dispatch shapes.
     # Row layout: trackers | miso | seekers — the rows that can move on
     # sub-steps j > 0 (trackers + the miso refine budget) sit in a
-    # contiguous prefix, enabling the kernel's prefix-rows optimization
-    # (sub-steps 1.. run on ~(nt+1) rows instead of all P).
+    # contiguous prefix.
     rates_tsm = jnp.asarray(
         [tracker_rate] * nt + [miso_rate] + [seeker_rate] * ns, jnp.float32
     )
@@ -706,13 +591,6 @@ def make_fused_step_impl(
     spreads_tm = jnp.asarray(
         [cfg.tracker_spread] * (nt + 1), jnp.float32
     )
-    # Family one-hots for the whole-swarm kernel's row layout.
-    fam_np = np.zeros((3, nt + ns + 1), np.float32)
-    fam_np[0, :nt] = 1.0
-    fam_np[2, nt] = 1.0
-    fam_np[1, nt + 1:] = 1.0
-    fam = jnp.asarray(fam_np)
-    prefix_rows = ((nt + 1 + 7) // 8) * 8 if cfg.iterations <= 4 else 0
     t_len = dsp.block_size
 
     def concat_p(*groups: Particles) -> Particles:
@@ -749,23 +627,6 @@ def make_fused_step_impl(
         mono = functools.partial(
             base_mono, points=points, channel_mask=channel_mask, unfolded=unf
         )
-        if use_pallas_chain:
-            from beamforming_lk_tpu.ops import pallas_tracker as ptk
-
-            mask_row = (
-                jnp.ones((1, points.shape[1]), jnp.float32)
-                if channel_mask is None
-                else channel_mask.reshape(1, -1).astype(jnp.float32)
-            )
-            xyz = jnp.concatenate([points * spm, mask_row], axis=0)
-            # Bandpass once on the compact window, unfold straight into the
-            # s-major layout (bit-identical to folding the unfolded copy —
-            # the bandpass commutes — at ~span-x less elementwise work),
-            # in f32, then drop to the probe compute dtype.  The raw
-            # (unfiltered) twin feeds the in-kernel MISO audio beam.
-            win_bp = ptk.bandpass_smaj_window(pw, span_eff).astype(unf.dtype)
-            win_raw = ptk.smaj_window(pw, span_eff)
-            interpret = jax.default_backend() != "tpu"
 
         # --- Seeker reset (gradient_ascend.cpp:295-299).
         key, sub = jax.random.split(state.key)
@@ -778,70 +639,10 @@ def make_fused_step_impl(
         tracking, start, mean = state.tracking, state.start, state.mean
 
         # Pre-generate ALL iterations' seeker jump offsets as one batched
-        # draw — both chain backends consume this schedule (the in-loop
-        # per-iteration threefry splits were the measured hot glue of the
-        # deployment step, scripts/profile_glue.py).
+        # draw.
         key, jts, jps = _swarm_jumps(
             key, cfg.iterations, ns, cfg.theta_limit / 2.0
         )
-
-        if use_pallas_chain:
-            # The WHOLE swarm update — every iteration's sub-step chain AND
-            # its merge/jump/promote boundary — as ONE pallas_call
-            # (ops/pallas_tracker.py::swarm_chain_pallas): particle state
-            # never leaves VMEM between iterations, and the per-iteration
-            # kernel-launch + XLA-glue overhead disappears.
-            from beamforming_lk_tpu.ops import pallas_tracker as ptk
-
-            zt = jnp.zeros((cfg.iterations, nt), jnp.float32)
-            zm = jnp.zeros((cfg.iterations, 1), jnp.float32)
-            jt_full = jnp.concatenate([zt, zm, jts], axis=1)
-            jp_full = jnp.concatenate([zt, zm, jps], axis=1)
-            pad_sm = jnp.zeros((ns + 1,), jnp.float32)
-            comb = concat_p(state.trackers, miso_particle, seekers)
-            tgt = jnp.stack([
-                jnp.concatenate([state.target_theta, pad_sm]),
-                jnp.concatenate([state.target_phi, pad_sm]),
-                jnp.concatenate(
-                    [state.target_valid.astype(jnp.float32), pad_sm]
-                ),
-            ])
-            (th, ph, gt, gp, rad, err, trk_o, start_o, mean, beam_pad) = (
-                ptk.swarm_chain_pallas(
-                    xyz, win_bp, comb.theta, comb.phi,
-                    rates_tsm, spreads_tsm,
-                    (comb.grad_theta, comb.grad_phi, comb.radius,
-                     comb.error),
-                    fam,
-                    jnp.concatenate(
-                        [tracking.astype(jnp.float32), pad_sm]
-                    ),
-                    jnp.concatenate([start, pad_sm]),
-                    tgt, jt_full, jp_full, block_index, reference,
-                    window_raw=win_raw,
-                    n_iter=cfg.iterations, n_sub=cfg.tracker_steps,
-                    refine=miso_refine_steps, n_trackers=nt,
-                    span=span_eff, theta_limit=cfg.theta_limit,
-                    divisor=float(t_len),
-                    closeness=cfg.tracker_closeness,
-                    error_threshold=cfg.error_threshold,
-                    interpret=interpret,
-                    probe_layout=cfg.probe_layout,
-                    taps=taps, interp=dsp.interp,
-                    fir_phases=dsp.fir_phases,
-                    min_power_fraction=cfg.min_power_fraction,
-                    prefix_rows=prefix_rows,
-                )
-            )
-            combo = Particles(th, ph, gt, gp, rad, err)
-            trackers = jax.tree.map(lambda x: x[:nt], combo)
-            miso_p = jax.tree.map(lambda x: x[nt:nt + 1], combo)
-            seekers = jax.tree.map(lambda x: x[nt + 1:], combo)
-            # trk_o is POST-prune (publish boundary in-kernel); the audio
-            # beam came out of the same kernel call.
-            tracking = trk_o[:nt] > 0.5
-            start = start_o[:nt]
-            kernel_beam = beam_pad[:t_len]
 
         def xla_chain(trackers, seekers, miso_p, tracking, it_idx):
             # Sub-step chain: group composition is static per sub-step
@@ -926,28 +727,15 @@ def make_fused_step_impl(
             mean = jnp.sum(jnp.where(valid, seekers.radius, 0.0)) / n_valid
             return (trackers, seekers, miso_p, tracking, start, mean), None
 
-        if not use_pallas_chain:
-            (trackers, seekers, miso_p, tracking, start, mean), _ = (
-                jax.lax.scan(
-                    iteration,
-                    (state.trackers, seekers, miso_particle, tracking,
-                     start, mean),
-                    (jnp.arange(cfg.iterations), jts, jps),
-                )
+        (trackers, seekers, miso_p, tracking, start, mean), _ = (
+            jax.lax.scan(
+                iteration,
+                (state.trackers, seekers, miso_particle, tracking,
+                 start, mean),
+                (jnp.arange(cfg.iterations), jts, jps),
             )
-            # Publish: prune weak/diverged trackers + sidelobe gate (the
-            # Pallas path runs this boundary in-kernel).
-            weak = (
-                (trackers.radius < mean)
-                | (trackers.radius < reference)
-                | (trackers.error > cfg.error_threshold)
-            )
-            tracking = tracking & ~weak
-            if cfg.min_power_fraction > 0.0:
-                strongest = jnp.max(jnp.where(tracking, trackers.radius, 0.0))
-                tracking = tracking & (
-                    trackers.radius >= cfg.min_power_fraction * strongest
-                )
+        )
+        tracking = _publish(trackers, tracking, mean, reference, cfg)
         targets = Targets(
             theta=trackers.theta,
             phi=trackers.phi,
@@ -971,218 +759,19 @@ def make_fused_step_impl(
         )
 
         # --- MISO audio beam at the refined direction (miso.cpp:41-55):
-        # float32.  The Pallas path emitted it from the kernel epilogue;
-        # the XLA chain builds it from the hoisted f32 unfold.
-        if use_pallas_chain:
-            miso_beam = kernel_beam
-        else:
-            delays = ant.steering_delays(
-                points, miso_p.theta, miso_p.phi, spm, axis_name=axis_name
-            )  # [1, C]
-            w = dl.das_weights(delays, span_eff, dsp.interp, bank)
-            if channel_mask is not None:
-                w = w * channel_mask[..., :, None]
-            miso_beam = dl.das_beam_unfolded(
-                unf_f32, w, axis_name=axis_name
-            )[0]
+        # float32, from the hoisted f32 unfold.
+        delays = ant.steering_delays(
+            points, miso_p.theta, miso_p.phi, spm, axis_name=axis_name
+        )  # [1, C]
+        w = dl.das_weights(delays, span_eff, dsp.interp, bank)
+        if channel_mask is not None:
+            w = w * channel_mask[..., :, None]
+        miso_beam = dl.das_beam_unfolded(
+            unf_f32, w, axis_name=axis_name
+        )[0]
         return new_state, targets, miso_p, miso_beam
 
     return step
-
-
-def make_fused_chunk_impl(
-    cfg: TrackerConfig,
-    dsp: DspConfig,
-    array_cfg: ArrayConfig,
-    fir_bank=None,
-    probe_span=None,
-    miso_refine_steps: int = 3,
-    n_blocks: int = 12,
-):
-    """K consecutive blocks of the fused swarm+MISO update as ONE
-    ``pallas_call`` (``ops.pallas_tracker.swarm_chunk_pallas``) — the
-    chunked-streaming throughput shape.
-
-    The per-block fused step's non-kernel glue (window fold, RNG, reference
-    power, output packing) batches across the chunk as single ops, and the
-    K kernel launches collapse to one; per-block randoms are generated with
-    the EXACT key schedule of K sequential :func:`make_fused_step_impl`
-    steps, so chunked and per-block processing follow the same trajectory
-    (pinned by ``test_fused_chunk_matches_per_block``).
-
-    Returns ``chunk_step(state, miso_particle, windows[K, C, T+S],
-    block_index0, points, channel_mask) -> (state, Targets[K, ...],
-    miso_particle, beams[K, T])`` — outputs stacked per block.  Requires
-    the Pallas chain configuration (linear/FIR interp, either probe
-    layout, unsharded channels).
-    """
-    if dsp.interp == "fir" and fir_bank is None:
-        fir_bank = dl.fractional_delay_fir_bank(dsp.fir_phases, dsp.fir_taps)
-    taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
-    spm = array_cfg.samples_per_meter
-    span_eff = (
-        dsp.shift_range
-        if probe_span is None
-        else min(probe_span, dsp.shift_range)
-    )
-    nt, ns = cfg.n_trackers, cfg.n_seekers
-    tracker_rate = cfg.tracker_step_gain * cfg.tracker_spread
-    seeker_rate = cfg.seeker_step_gain * cfg.seeker_spread
-    miso_rate = tracker_rate / 3.0                       # miso.cpp:39-40
-    # Row layout: trackers | miso | seekers (see make_fused_step_impl —
-    # the prefix-rows optimization needs the j>0-movable rows contiguous).
-    rates_tsm = jnp.asarray(
-        [tracker_rate] * nt + [miso_rate] + [seeker_rate] * ns, jnp.float32
-    )
-    spreads_tsm = jnp.asarray(
-        [cfg.tracker_spread] * nt
-        + [cfg.tracker_spread]
-        + [cfg.seeker_spread] * ns,
-        jnp.float32,
-    )
-    fam_np = np.zeros((3, nt + ns + 1), np.float32)
-    fam_np[0, :nt] = 1.0
-    fam_np[2, nt] = 1.0
-    fam_np[1, nt + 1:] = 1.0
-    fam = jnp.asarray(fam_np)
-    prefix_rows = ((nt + 1 + 7) // 8) * 8 if cfg.iterations <= 4 else 0
-    t_len = dsp.block_size
-    kb = int(n_blocks)
-    jump = cfg.theta_limit / 2.0
-
-    from beamforming_lk_tpu.ops import pallas_tracker as ptk
-
-    def chunk_step(
-        state: SwarmState, miso_particle: Particles, windows, block_index0,
-        points, channel_mask,
-    ):
-        # --- Per-block reference powers (gradient_ascend.cpp:304-313),
-        # batched: channel 0 of every window in one op.
-        b0 = dsp.shift_range - taps
-        raw0 = jax.lax.dynamic_slice_in_dim(
-            windows[:, 0, :], b0, t_len, axis=1
-        )                                                  # [K, T]
-        references = dl.das_power(
-            raw0, use_bandpass=True, divisor=t_len - 2
-        )                                                  # [K]
-
-        # --- Batched window folds (one op each instead of K).
-        pw = (
-            windows
-            if span_eff >= dsp.shift_range
-            else windows[..., dsp.shift_range - span_eff:]
-        )
-        win_bp = jax.vmap(
-            lambda w: ptk.bandpass_smaj_window(w, span_eff)
-        )(pw)
-        if dsp.probe_compute == "bfloat16":
-            win_bp = win_bp.astype(jnp.bfloat16)
-        win_raw = jax.vmap(lambda w: ptk.smaj_window(w, span_eff))(pw)
-
-        mask_row = (
-            jnp.ones((1, points.shape[1]), jnp.float32)
-            if channel_mask is None
-            else channel_mask.reshape(1, -1).astype(jnp.float32)
-        )
-        xyz = jnp.concatenate([points * spm, mask_row], axis=0)
-        interpret = jax.default_backend() != "tpu"
-
-        # --- Per-block randoms with the EXACT per-block key schedule
-        # (make_fused_step_impl: split for the reset dirs, then
-        # _swarm_jumps' split + one batched uniform).
-        def keygen(k, _):
-            k, sub = jax.random.split(k)
-            rth, rph = _random_directions(sub, ns, cfg.theta_limit)
-            k, jts_k, jps_k = _swarm_jumps(k, cfg.iterations, ns, jump)
-            return k, (rth, rph, jts_k, jps_k)
-
-        key, (rths, rphs, jts, jps) = jax.lax.scan(
-            keygen, state.key, None, length=kb
-        )
-        reset_flags = (
-            jnp.mod(state.reset_count + jnp.arange(kb),
-                    cfg.seeker_reset_interval) == 0
-        ).astype(jnp.float32)
-        zt_r = jnp.zeros((kb, nt), jnp.float32)
-        zm_r = jnp.zeros((kb, 1), jnp.float32)
-        reset_th = jnp.concatenate([zt_r, zm_r, rths], axis=1)   # [K, P]
-        reset_ph = jnp.concatenate([zt_r, zm_r, rphs], axis=1)
-        zt_j = jnp.zeros((kb, cfg.iterations, nt), jnp.float32)
-        zm_j = jnp.zeros((kb, cfg.iterations, 1), jnp.float32)
-        jt_full = jnp.concatenate([zt_j, zm_j, jts], axis=2)     # [K, I, P]
-        jp_full = jnp.concatenate([zt_j, zm_j, jps], axis=2)
-
-        pad_sm = jnp.zeros((ns + 1,), jnp.float32)
-        comb = jax.tree.map(
-            lambda *leaves: jnp.concatenate(leaves),
-            state.trackers, miso_particle, state.seekers,
-        )
-        tgt = jnp.stack([
-            jnp.concatenate([state.target_theta, pad_sm]),
-            jnp.concatenate([state.target_phi, pad_sm]),
-            jnp.concatenate(
-                [state.target_valid.astype(jnp.float32), pad_sm]
-            ),
-        ])
-        (th, ph, gt, gp, rad, err, trk_o, start_o, mean, beams) = (
-            ptk.swarm_chunk_pallas(
-                xyz, win_bp, win_raw, comb.theta, comb.phi,
-                rates_tsm, spreads_tsm,
-                (comb.grad_theta, comb.grad_phi, comb.radius, comb.error),
-                fam,
-                jnp.concatenate(
-                    [state.tracking.astype(jnp.float32), pad_sm]
-                ),
-                jnp.concatenate([state.start, pad_sm]),
-                tgt, jt_full, jp_full,
-                reset_flags, reset_th, reset_ph,
-                block_index0, references,
-                n_blocks=kb, n_iter=cfg.iterations,
-                n_sub=cfg.tracker_steps, refine=miso_refine_steps,
-                n_trackers=nt, span=span_eff,
-                theta_limit=cfg.theta_limit, divisor=float(t_len),
-                closeness=cfg.tracker_closeness,
-                error_threshold=cfg.error_threshold,
-                interpret=interpret,
-                probe_layout=cfg.probe_layout,
-                taps=taps, interp=dsp.interp,
-                fir_phases=dsp.fir_phases,
-                min_power_fraction=cfg.min_power_fraction,
-                prefix_rows=prefix_rows,
-            )
-        )
-        # Per-block published targets (post-prune, like the per-block path).
-        tracking_k = trk_o[:, :nt] > 0.5                    # [K, nt]
-        targets = Targets(
-            theta=th[:, :nt],
-            phi=ph[:, :nt],
-            power=rad[:, :nt],
-            probability=1.0 / jnp.maximum(err[:, :nt], 1e-30),
-            start=start_o[:, :nt],
-            valid=tracking_k,
-        )
-        last = jax.tree.map(
-            lambda x: x[-1], Particles(th, ph, gt, gp, rad, err)
-        )
-        trackers = jax.tree.map(lambda x: x[:nt], last)
-        miso_p = jax.tree.map(lambda x: x[nt:nt + 1], last)
-        seekers = jax.tree.map(lambda x: x[nt + 1:], last)
-        new_state = SwarmState(
-            seekers=seekers,
-            trackers=trackers,
-            tracking=tracking_k[-1],
-            start=start_o[-1, :nt],
-            jumped=state.jumped,
-            mean=mean[-1],
-            reset_count=state.reset_count + kb,
-            key=key,
-            target_theta=trackers.theta,
-            target_phi=trackers.phi,
-            target_valid=tracking_k[-1],
-        )
-        return new_state, targets, miso_p, beams[:, :t_len]
-
-    return chunk_step
 
 
 def make_swarm_step(

@@ -1,4 +1,4 @@
-"""TPU compute ops: geometry, steering, delay-and-sum kernels."""
+"""Device compute ops: geometry, steering, delay-and-sum kernels."""
 
 from beamforming_lk_tpu.ops.geometry import (
     cartesian_to_spherical,
@@ -47,14 +47,4 @@ from beamforming_lk_tpu.ops.filters import (
     bandpass_fractional_bank,
     reference_band_banks,
     windowed_sinc_delay,
-)
-from beamforming_lk_tpu.ops.pallas_das import (
-    das_beam_pallas,
-    delay_split_np,
-    pad_directions,
-)
-from beamforming_lk_tpu.ops.pallas_tracker import (
-    fold_bandpass_window,
-    monopulse_chain_pallas,
-    pack_geometry,
 )

@@ -61,7 +61,7 @@ def create_antenna_grid(
 def combine_arrays(grids, offsets) -> np.ndarray:
     """Concatenate several element grids placed at given xyz offsets.
 
-    TPU-native extension: the reference only ever steers one 64-element
+    Extension: the reference only ever steers one 64-element
     array at a time (one ``Antenna`` per 64 sensors,
     aw_processing_unit.cpp:58-65); here multiple arrays can be fused into a
     single coherent aperture simply by concatenating channels.
@@ -79,8 +79,7 @@ def multi_array_cluster(
     """A compact near-square cluster of 8x8 arrays totalling ``n_mics``
     channels, side by side at array pitch — the coherent multi-array
     aperture (the reference only ever beamforms each 64-mic array
-    separately, aw_processing_unit.cpp:58-65; fusing them is the TPU-native
-    upgrade).  Keeps the aperture compact so min-subtracted steering delays
+    separately, aw_processing_unit.cpp:58-65; this fuses them).  Keeps the aperture compact so min-subtracted steering delays
     stay small (the DAS shift span grows with aperture)."""
     g = create_antenna_grid(columns, rows, distance)
     e = columns * rows
@@ -119,7 +118,9 @@ def steer_points(points, theta, phi):
         ],
         axis=-2,
     )
-    return rot @ jnp.asarray(points)
+    return jnp.matmul(
+        rot, jnp.asarray(points), precision=jax.lax.Precision.HIGHEST
+    )
 
 
 def steering_delays(points, theta, phi, samples_per_meter, axis_name=None):
@@ -137,7 +138,12 @@ def steering_delays(points, theta, phi, samples_per_meter, axis_name=None):
     phi = jnp.asarray(phi, jnp.float32)
     st = jnp.sin(theta)
     u = jnp.stack([st * jnp.cos(phi), -st * jnp.sin(phi), jnp.cos(theta)], axis=-1)
-    z = u @ jnp.asarray(points, jnp.float32)  # [..., N]
+    # HIGHEST: a TF32 product would put ~1e-3 relative error on delays of
+    # tens of samples.
+    z = jnp.matmul(
+        u, jnp.asarray(points, jnp.float32),
+        precision=jax.lax.Precision.HIGHEST,
+    )  # [..., N]
     delays = z * jnp.float32(samples_per_meter)
     mins = jnp.min(delays, axis=-1, keepdims=True)
     if axis_name is not None:

@@ -1,12 +1,12 @@
-"""Fractional-delay delay-and-sum (DAS), lowered to an MXU shift-matmul.
+"""Fractional-delay delay-and-sum (DAS), lowered to a dense shift-matmul.
 
 This is the single kernel behind all three reference workloads — the MIMO
 heatmap inner loop (``src/dsp/mimo.cpp:121-151``), the tracker's monopulse
 probe beams (``src/dsp/particle.cpp:51-82``) and the MISO audio beam
 (``src/dsp/particle.cpp:88-103``) all call the same ``delay()`` accumulate
 kernel (``src/dsp/delay.cpp``).  Here that per-(direction, channel) dynamic
-time-shift gather is recast as a dense contraction, which is what a TPU's
-systolic array wants:
+time-shift gather is recast as a dense contraction, which matrix units
+(tensor cores) run at full rate:
 
     beam[d, t] = sum_c sum_k  W[d, c, k] * x[c, t + k]
 
@@ -15,8 +15,7 @@ with ``W`` a per-direction interpolation stencil that is zero except for
 polyphase FIR bank).  Unfolding ``x`` into sliding windows turns the whole
 thing into one ``[D, C*S] @ [C*S, T]`` matmul.  The shift span S is small
 (max steering delay for an 8x8 array at 2 cm pitch is ~29 samples) so the
-unfolded window is tiny (C*S*T floats ~ 4 MB) and W streams at HBM speed or
-is rebuilt on the fly in VMEM by the Pallas kernel (ops/pallas_das.py).
+unfolded window is tiny (C*S*T floats ~ 4 MB) and W streams at HBM speed.
 
 Index-level parity with the reference's active (AVX2) delay variant
 (``delay.cpp:16-26``): that kernel computes
@@ -144,7 +143,7 @@ def das_weights(delays, shift_range: int, mode: str = "linear", fir_bank=None):
     so it is built closed-form in 3 elementwise ops on ``[..., C, S]``
     (subtract / abs / relu) with no ``[..., C, taps, S]`` intermediate —
     this build runs once per sequential monopulse dispatch in the tracker
-    swarm chain and is its elementwise bottleneck, not the MXU matmul.
+    swarm chain and is its elementwise bottleneck, not the matmul.
     """
     if mode == "linear":
         shift, frac = delay_lut(delays, shift_range, LINEAR_TAPS)
@@ -162,15 +161,17 @@ def das_weights(delays, shift_range: int, mode: str = "linear", fir_bank=None):
     shift_e = shift[..., None, None]                    # [..., C, 1, 1]
     j = jnp.arange(taps, dtype=jnp.int32)[:, None]      # [taps, 1]
     onehot = (k[None, None, :] == shift_e + j).astype(w.dtype)  # [..., C, taps, S]
-    return jnp.einsum("...ct,...cts->...cs", w, onehot)
+    return jnp.einsum(
+        "...ct,...cts->...cs", w, onehot, precision=jax.lax.Precision.HIGHEST
+    )
 
 
 def das_weights_np(delays, shift_range: int, mode: str = "linear", fir_bank=None):
     """Host-side (numpy) builder of the same stencil as :func:`das_weights`.
 
     For large STATIC direction grids (the MIMO heatmap LUT) the traced
-    one-hot construction is wasteful at build time — and on a remote-device
-    setup every eager op round-trips to the accelerator.  This scatters the
+    one-hot construction is wasteful at build time, one eager dispatch per
+    op.  This scatters the
     taps directly and does not touch the device at all; callers
     ``device_put`` the result once.
     """
@@ -211,7 +212,7 @@ def das_beam(window, weights, *, precision=jax.lax.Precision.HIGHEST,
     """beam[..., D, T] = W[..., D, C, S] contracted with unfolded window.
 
     window: [C, T + S]; weights: [..., D, C, S].
-    One [D, C*S] @ [C*S, T] matmul — MXU-bound.
+    One [D, C*S] @ [C*S, T] matmul.
 
     ``axis_name``: when C is a shard of the channel axis (inside
     ``shard_map``), the partial beams are ``psum``-reduced over that mesh
@@ -236,7 +237,8 @@ def das_beam_unfolded(unf, weights, *, precision=jax.lax.Precision.HIGHEST,
     dispatch removes S slices + a stack (and the bf16 cast) per step.
     """
     # Accumulate in float32 regardless of input dtype (bf16 inputs run the
-    # MXU at full rate; bf16 accumulation over C*S terms would not be OK).
+    # matrix units at full rate; bf16 accumulation over C*S terms would
+    # not be OK).
     beam = jnp.einsum(
         "...dcs,cst->...dt", weights, unf, precision=precision,
         preferred_element_type=jnp.float32,

@@ -10,6 +10,7 @@ no scalar loops anywhere.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -158,8 +159,13 @@ def _rotated_probes(base_phis_deg, theta, phi, spread):
     )
 
     rotate_theta, adjusted_theta = _edge_adjust(theta, spread)
-    rot = rotation_z(phi) @ rotation_y(rotate_theta)          # [..., 3, 3]
-    rotated = jnp.einsum("...ij,...pj->...pi", rot, base)
+    rot = jnp.matmul(
+        rotation_z(phi), rotation_y(rotate_theta),
+        precision=jax.lax.Precision.HIGHEST,
+    )                                                         # [..., 3, 3]
+    rotated = jnp.einsum(
+        "...ij,...pj->...pi", rot, base, precision=jax.lax.Precision.HIGHEST
+    )
     probe_theta = jnp.arccos(jnp.clip(rotated[..., 2], -1.0, 1.0))
     probe_phi = jnp.arctan2(rotated[..., 1], rotated[..., 0])
     return probe_theta, probe_phi, adjusted_theta
@@ -187,8 +193,13 @@ def quadrant_probes_reference(theta, phi, spread):
     base = spherical_to_cartesian(jnp.full_like(base_phi, spread), base_phi)
 
     rotate_theta, adjusted_theta = _edge_adjust(theta, spread)
-    rot = rotation_y(rotate_theta) @ rotation_z(phi)
-    rotated = jnp.einsum("pi,...ij->...pj", base, rot)        # row-vector product
+    rot = jnp.matmul(
+        rotation_y(rotate_theta), rotation_z(phi),
+        precision=jax.lax.Precision.HIGHEST,
+    )
+    rotated = jnp.einsum(                                     # row-vector product
+        "pi,...ij->...pj", base, rot, precision=jax.lax.Precision.HIGHEST
+    )
     probe_theta = jnp.arccos(jnp.clip(rotated[..., 2], -1.0, 1.0))
     probe_phi = jnp.arctan2(rotated[..., 1], rotated[..., 0]) - np.pi
     return probe_theta, probe_phi, adjusted_theta

@@ -2,7 +2,7 @@
 
 The reference scales by threads within one process plus "run more AWPUs"
 (SURVEY §2.3); it has no distributed backend at all.  Here scaling is a
-first-class mesh story over XLA collectives riding ICI:
+first-class mesh story over XLA collectives:
 
 ==========  =============================  ===========================
 mesh axis   shards                          communication

@@ -7,8 +7,8 @@ device mesh:
 
 - **channel sharding** (``ch``): each device holds ``C/n_ch`` mic channels
   of the window and the matching stencil slice; partial beams are summed
-  with ``lax.psum`` — the TPU analog of the reference's accumulate-over-mics
-  inner loop (``src/dsp/delay.cpp:16-26``), with the accumulation riding ICI.
+  with ``lax.psum`` — the analog of the reference's accumulate-over-mics
+  inner loop (``src/dsp/delay.cpp:16-26``), accumulated across devices.
 - **direction sharding** (``dir``): the heatmap grid / probe batch splits
   freely with no communication.
 - **time sharding** (``t``): a block's time axis splits into contiguous

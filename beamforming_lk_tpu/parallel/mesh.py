@@ -36,9 +36,10 @@ def make_mesh(
     """Build a mesh over available devices.
 
     With no ``shape``, all devices are split as-square-as-possible over the
-    first two axis names (remaining axes get size 1).  On a real pod slice,
-    prefer passing an explicit shape that follows the physical ICI torus so
-    ``psum`` over ``ch`` stays on-ring.
+    first two axis names (remaining axes get size 1).  Devices that reach
+    each other all to all (NVLink) impose no layout, so pass the shape the
+    algorithm wants — e.g. ``(n, 1)`` when the direction count does not
+    divide by ``n``.
     """
     devices = list(jax.devices() if devices is None else devices)
     n = len(devices)

@@ -5,7 +5,7 @@ processes (SURVEY §2.3).  Here each host ingests its own FPGA links (the
 channel shard lives where its UDP packets land), and
 ``jax.make_array_from_process_local_data`` assembles the logical [C, T]
 block without any cross-host copy of sample data; the fused shard_mapped
-step then runs unchanged, with psum/ppermute riding ICI.
+step then runs unchanged, with psum/ppermute across hosts.
 
 Single-process this degenerates to a device_put — which is how it's tested;
 multi-process needs only ``initialize()`` at startup.

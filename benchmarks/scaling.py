@@ -1,9 +1,8 @@
 """Measured multi-device scaling on the virtual CPU mesh.
 
-The analytic communication budget (``scripts/comm_budget.py``) predicts how
-the sharded programs scale, but an analytic model cannot catch SPMD
-pathologies — accidental replication, a psum that materializes the full
-array.  This benchmark *measures* relative throughput of the real sharded
+An analytic communication budget cannot catch SPMD pathologies —
+accidental replication, a psum that materializes the full array.  This
+benchmark *measures* relative throughput of the real sharded
 programs at 1/2/4/8 host devices (``--xla_force_host_platform_device_count``,
 the same mechanism the test suite pins) with the GLOBAL problem size held
 fixed (strong scaling):
@@ -66,7 +65,7 @@ REPS = 3
 
 def _rate(fn, sync, n_items):
     """Best-of-REPS throughput of fn() in items/s (CPU-local: perf_counter
-    around a synced call is honest — no remote tunnel)."""
+    around a synced call)."""
     fn_out = fn()
     sync(fn_out)  # compile + warm
     best = 0.0
@@ -253,6 +252,9 @@ def main() -> int:
     ap.add_argument("--json", default=None, help="also write results here")
     args = ap.parse_args()
     if args.worker:
+        from beamforming_lk_tpu.utils.compile_cache import use_compile_cache
+
+        use_compile_cache()
         worker(args.worker)
         return 0
 

@@ -16,10 +16,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -36,7 +32,6 @@ def run_scenario(
     motion_deg_per_s: float = 10.0,
     seed: int = 0,
     probe_compute: str = "float32",
-    probe_kernel: str = "xla",
     interp: str = "linear",
     probe_layout: str = "quadrant",
 ):
@@ -45,8 +40,7 @@ def run_scenario(
     cfg = Config(
         dsp=DspConfig(probe_compute=probe_compute, interp=interp),
         mimo=MimoConfig(rows=8, columns=8),
-        tracker=TrackerConfig(iterations=4, probe_kernel=probe_kernel,
-                              probe_layout=probe_layout),
+        tracker=TrackerConfig(iterations=4, probe_layout=probe_layout),
     )
     pipe = AwpuPipeline(cfg, seed=seed, enable_mimo=False, enable_miso=False)
     dt = cfg.dsp.block_seconds
@@ -186,36 +180,11 @@ def run_multi_scenario(
 
 
 if __name__ == "__main__":
-    import jax
+    from beamforming_lk_tpu.utils.compile_cache import use_compile_cache
 
+    use_compile_cache()
     for pc in ("float32", "bfloat16"):
         print(pc, json.dumps(run_scenario(probe_compute=pc), indent=2))
-    if jax.default_backend() == "tpu":
-        # Tracker-chain Pallas kernel (ops/pallas_tracker.py): quality must
-        # match the XLA chain (interpret mode off-TPU is too slow to sweep).
-        print(
-            "bfloat16+pallas_chain",
-            json.dumps(
-                run_scenario(probe_compute="bfloat16",
-                             probe_kernel="pallas"),
-                indent=2,
-            ),
-        )
-        # Round-4 kernel coverage: the in-kernel FIR stencil and the
-        # horizontal N/E/S/W probe layout must track as well as the
-        # deployment config.
-        for label, kw in (
-            ("bfloat16+pallas_fir", dict(interp="fir")),
-            ("bfloat16+pallas_horizontal", dict(probe_layout="horizontal")),
-        ):
-            print(
-                label,
-                json.dumps(
-                    run_scenario(probe_compute="bfloat16",
-                                 probe_kernel="pallas", **kw),
-                    indent=2,
-                ),
-            )
     for n in (2, 3):
         print(
             f"multi{n}",

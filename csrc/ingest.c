@@ -1,6 +1,6 @@
 /* Native FPGA UDP ingest shim.
  *
- * TPU-native equivalent of the reference's receiver + producer thread
+ * Equivalent of the reference's receiver + producer thread
  * (src/fpga/receiver.cpp:28-58, src/fpga/pipeline.cpp:243-296): one packet
  * per sample at ~48828 pkt/s per FPGA link.  The per-packet recv() loop of
  * the reference becomes a recvmmsg() batch loop on a dedicated thread,

@@ -1,4 +1,4 @@
-"""Ablation profile of the separable fft heatmap path on the real TPU.
+"""Ablation profile of the separable fft heatmap path on the device.
 
 Times cumulative prefixes of the fft_das pipeline (same scan-differencing
 methodology as bench.py) to find where the per-block time goes:
@@ -168,7 +168,6 @@ def main():
 
     m_beam = dc.replace(model, power_path="beam")
     m_fused = dc.replace(model, power_path="fused")
-    m_pallas = dc.replace(model, power_path="pallas")
     f_half = model.dft.shape[-1] // 2
     d_total = model.rows * model.columns
 
@@ -195,22 +194,6 @@ def main():
         b2_ri = jnp.concatenate([b2_re, b2_im], axis=-1)
         bp = mm("yxf,ft->yxt", b2_ri, model.pow_ri)
         return jnp.sum(bp * bp, axis=-1).reshape(-1)[:4]
-
-    def w3_pallas_noprep(w, a_re, a_im):
-        # Kernel cost in isolation: operands pre-padded/pre-cast; the tiny
-        # dynamic_update keeps them scan-carried without constant folding.
-        a_re = jax.lax.dynamic_update_slice(a_re, w[:1, :1].astype(a_re.dtype), (0, 0))
-        return fd.power_matmul_pallas(
-            a_re, a_im, model.pow_ri[:f_half], model.pow_ri[f_half:],
-            interpret=False,
-        )[:4]
-
-    rngp = np.random.default_rng(9)
-    dp = d_total + ((-d_total) % 256)
-    a_re_c = jax.device_put(jnp.asarray(
-        rngp.standard_normal((dp, f_half)), jnp.bfloat16))
-    a_im_c = jax.device_put(jnp.asarray(
-        rngp.standard_normal((dp, f_half)), jnp.bfloat16))
 
     def w4_pow_concat2d(w):
         # fused power via ONE 2D matmul on the concatenated [M, 2F] planes.
@@ -240,12 +223,10 @@ def main():
         "v4_beam": lambda w: jnp.sum(stage_beam(w), axis=0)[:4],
         "v5_beam_power": lambda w: fd.fft_heatmap_powers(w, m_beam)[:4],
         "v6_fused_power": lambda w: fd.fft_heatmap_powers(w, m_fused)[:4],
-        "v7_pallas_power": lambda w: fd.fft_heatmap_powers(w, m_pallas)[:4],
         "w1_bp_only": w1_bp_only,
         "w2_bp_sq": w2_bp_sq,
         "w4_pow_concat2d": w4_pow_concat2d,
         "w5_pow_split": w5_pow_split,
-        "w3_pallas_kernel": lambda w: w3_pallas_noprep(w, a_re_c, a_im_c),
     }
     only = os.environ.get("PROFILE_ONLY")
     if only:

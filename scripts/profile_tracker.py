@@ -1,4 +1,4 @@
-"""Ablation profile of the monopulse chain (models/tracker.py) on the TPU.
+"""Ablation profile of the monopulse chain (models/tracker.py) on the device.
 
 The fused app step is dominated by the sequential swarm chain —
 ``iterations x tracker_steps`` dependent monopulse dispatches.  This times
@@ -150,32 +150,6 @@ def main():
         pr, _ = jax.lax.scan(f, parts, None, length=n * 4)
         return pr.theta
 
-    from beamforming_lk_tpu.ops import pallas_tracker as ptk
-
-    xyz = ptk.pack_geometry(np.asarray(points), spm)
-    win_bp = ptk.fold_bandpass_window(
-        dl.unfold_window(pw, span, pw.shape[-1] - span)
-    ).astype(jnp.bfloat16)
-    act5 = jnp.ones((5, p), jnp.float32)
-
-    def w6_chain(theta, phi, n):
-        # n*4 rounds as n*4/5 kernel calls of 5 sub-steps each.
-        def f(carry, _):
-            th, ph = carry
-            th, ph, gt, gp, rad, err = ptk.monopulse_chain_pallas(
-                xyz, win_bp, th, ph,
-                jnp.full((p,), rate, jnp.float32),
-                jnp.full((p,), spread, jnp.float32),
-                act5, span=span, theta_limit=cfg.theta_limit,
-                divisor=float(BLOCK),
-            )
-            return (th, ph), None
-
-        (th, ph), _ = jax.lax.scan(
-            f, (theta, phi), None, length=n * 4 // 5
-        )
-        return th
-
     stages = {
         "w0_unfold_only": functools.partial(chain, w0, theta0, phi0),
         "w1_probes": functools.partial(chain, w1, theta0, phi0),
@@ -183,7 +157,6 @@ def main():
         "w3_weights": functools.partial(chain, w3, theta0, phi0),
         "w4_beam_power": functools.partial(chain, w4, theta0, phi0),
         "w5_full_step": functools.partial(w5_chain, theta0, phi0),
-        "w6_pallas_chain": functools.partial(w6_chain, theta0, phi0),
     }
     print(f"particles={p} span={span} chain_rounds={ROUNDS}x4", flush=True)
     for name, fn in stages.items():

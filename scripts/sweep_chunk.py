@@ -1,4 +1,4 @@
-"""Chunk-size sweep of the chunked-streaming fft heatmap on the real TPU.
+"""Chunk-size sweep of the chunked-streaming fft heatmap on the device.
 
 Times the bench.py fft_bf16 chunked variant at several blocks-per-dispatch
 sizes to pick the deployment CHUNK (same scan-differencing methodology).

@@ -51,6 +51,49 @@ def das_ref(history, delays, block_start, n_samples):
     return out
 
 
+def das_fir_ref(history, delays, block_start, n_samples, bank):
+    """Delay-and-sum a block through a polyphase fractional-delay FIR bank
+    (delay.cpp:31-40 semantics): per channel, the bank row of the
+    quantized fraction filters the signal starting ``int(delay)`` samples
+    before the block."""
+    bank = np.asarray(bank, np.float64)
+    phases, taps = bank.shape
+    out = np.zeros(n_samples, np.float64)
+    for c in range(history.shape[0]):
+        whole = int(np.floor(delays[c]))
+        h = bank[int(round((float(delays[c]) - whole) * (phases - 1)))]
+        off = block_start - whole
+        for j in range(taps):
+            out += h[j] * history[c, off + j: off + j + n_samples]
+    return out
+
+
+def monopulse_probes_ref(theta, phi, spread, layout="quadrant"):
+    """The four monopulse probe directions around (theta, phi): the
+    reference's ring at inclination ``spread`` (diagonals for "quadrant",
+    N/E/S/W for "horizontal"; geometry.cpp:144-217) with its FoV-edge
+    pull-in, rotated onto the particle by ``Rz(phi) @ Ry(theta)`` — the
+    re-centred construction ops/geometry.py documents, i.e. without the
+    reference's azimuth mirror.  Returns (probes [(theta, phi)] x 4,
+    adjusted_theta)."""
+    azimuths = (45.0, 315.0, 225.0, 135.0) if layout == "quadrant" else (
+        0.0, 90.0, 180.0, 270.0)
+    rotate_theta, adjusted = theta, theta
+    if theta + spread > math.pi / 2.0:
+        rotate_theta = theta - spread
+        adjusted = theta - spread / 2.0
+    rot = rotate_z(phi) @ rotate_y(rotate_theta)
+    probes = []
+    for a in azimuths:
+        a = math.radians(a)
+        k = rot @ np.array([math.sin(spread) * math.cos(a),
+                            math.sin(spread) * math.sin(a),
+                            math.cos(spread)])
+        probes.append((math.acos(np.clip(k[2], -1.0, 1.0)),
+                       math.atan2(k[1], k[0])))
+    return probes, adjusted
+
+
 def bandpass_power_ref(out, n_samples, divisor):
     """Port of the 3-tap MA bandpass power (mimo.cpp:131-137)."""
     acc = 0.0
@@ -148,3 +191,101 @@ def triangulate_ref(o1, d1, o2, d2, distance_threshold):
     ):
         return np.zeros(3)
     return mid
+
+
+def fft_das_power_ref(windows, delays, shift_range, block_size, taps=2,
+                      mask=None, use_bandpass=True):
+    """Frequency-domain delay-and-sum power, one (direction, channel) phase
+    at a time in complex float64 — the exact band-limited semantics of the
+    separable heatmap (ops/fft_das.py), without its factorization.
+
+    windows [..., C, S + T]; delays [D, C] in samples.  The alignment
+    offset ``(S - taps) + 1`` matches the dense linear-interp kernel's
+    window convention, including the reference's backwards-interp
+    one-sample quirk (delay.cpp:24).  Returns powers [..., D].
+    """
+    windows = np.asarray(windows, np.float64)
+    delays = np.asarray(delays, np.float64)
+    s, t = shift_range, block_size
+    n_fft = s + t
+    f = np.arange(n_fft // 2 + 1)
+    x = np.fft.rfft(windows, n=n_fft, axis=-1)             # [..., C, F]
+    if mask is not None:
+        x = x * np.asarray(mask, np.float64)[:, None]
+    shift = (s - taps) + 1 - delays                         # [D, C]
+    phase = np.exp(2j * np.pi * f[None, None, :] * shift[..., None] / n_fft)
+    spec = np.einsum("dcf,...cf->...df", phase, x)
+    beam = np.fft.irfft(spec, n=n_fft, axis=-1)[..., :t]
+    if use_bandpass:
+        beam = 0.5 * beam[..., 1:-1] - 0.25 * (beam[..., 2:] + beam[..., :-2])
+    n_act = delays.shape[1] if mask is None else float(np.sum(mask))
+    return (beam ** 2).sum(axis=-1) / (t * n_act)
+
+
+def _stft_covariance_ref(blocks, frame_size, hop, bins, ema_alpha):
+    """EMA over blocks of the per-bin sample covariance ``X X^H / M`` of
+    Hann-windowed frames (complex128, [F, C, C])."""
+    win = np.hanning(frame_size)
+    cov = None
+    for block in blocks:
+        block = np.asarray(block, np.float64)
+        starts = range(0, block.shape[-1] - frame_size + 1, hop)
+        frames = np.stack([block[:, s:s + frame_size] for s in starts])
+        x = np.fft.rfft(frames * win, axis=-1)[..., bins]   # [M, C, F]
+        r = np.einsum("mcf,mdf->fcd", x, x.conj()) / frames.shape[0]
+        cov = r if cov is None else (1.0 - ema_alpha) * cov + ema_alpha * r
+    return cov
+
+
+def _adaptive_setup(points, theta, phi, samples_per_meter, sample_rate,
+                    frame_size, f_low, f_high):
+    freqs = np.fft.rfftfreq(frame_size, 1.0 / sample_rate)
+    bins = np.nonzero((freqs >= f_low) & (freqs <= f_high))[0]
+    bins = bins[(bins > 0) & (bins < frame_size // 2)]
+    delays = np.stack([
+        steering_delays_ref(points, t, p, samples_per_meter)
+        for t, p in zip(np.ravel(theta), np.ravel(phi))
+    ])                                                      # [D, C]
+    v = np.exp(2j * np.pi * freqs[bins][:, None, None] * delays[None]
+               / sample_rate)                               # [F, D, C]
+    return bins, v
+
+
+def capon_ref(blocks, points, theta, phi, samples_per_meter, sample_rate,
+              frame_size=64, hop=32, f_low=550.0, f_high=9000.0,
+              ema_alpha=0.1, diagonal_loading=1e-3):
+    """Wideband Capon (MVDR) power ``sum_f 1 / (v^H R^-1 v)`` in complex
+    float64, with the covariance EMA and trace-scaled diagonal loading of
+    models/mvdr.py."""
+    bins, v = _adaptive_setup(points, theta, phi, samples_per_meter,
+                              sample_rate, frame_size, f_low, f_high)
+    cov = _stft_covariance_ref(blocks, frame_size, hop, bins, ema_alpha)
+    c = cov.shape[-1]
+    powers = np.zeros(v.shape[1])
+    for f in range(len(bins)):
+        load = diagonal_loading * np.trace(cov[f]).real / c + 1e-12
+        r = cov[f] + load * np.eye(c)
+        sol = np.linalg.solve(r, v[f].T)                    # [C, D]
+        powers += 1.0 / np.einsum("dc,cd->d", v[f].conj(), sol).real
+    return powers
+
+
+def music_ref(blocks, points, theta, phi, samples_per_meter, sample_rate,
+              n_sources=3, frame_size=64, hop=32, f_low=550.0, f_high=9000.0,
+              ema_alpha=0.1):
+    """Incoherent wideband MUSIC ``sum_f w_f / ||En^H v||^2`` in complex
+    float64 (exact eigendecomposition per bin), with the SNR bin weights
+    of models/music.py."""
+    bins, v = _adaptive_setup(points, theta, phi, samples_per_meter,
+                              sample_rate, frame_size, f_low, f_high)
+    cov = _stft_covariance_ref(blocks, frame_size, hop, bins, ema_alpha)
+    c, k = cov.shape[-1], n_sources
+    sig = np.zeros(len(bins))
+    denom = np.zeros((len(bins), v.shape[1]))
+    for f in range(len(bins)):
+        vals, vecs = np.linalg.eigh(cov[f])                 # ascending
+        en = vecs[:, :c - k]
+        sig[f] = max(vals[c - k:].sum() - k * vals[:c - k].mean(), 0.0)
+        denom[f] = (np.abs(v[f].conj() @ en) ** 2).sum(axis=-1)
+    w = sig / max(sig.sum(), 1e-30)
+    return (w[:, None] / np.maximum(denom, 1e-12)).sum(axis=0)

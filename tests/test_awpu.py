@@ -6,6 +6,7 @@ program)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from beamforming_lk_tpu.app import AwpuPipeline, awpu_init, make_awpu_step
 from beamforming_lk_tpu.config import Config, DspConfig, MimoConfig, TrackerConfig
@@ -343,3 +344,53 @@ def test_heatmap_every_decimation_reuses_carried_powers():
         assert np.abs(pb[i] - pa[i]).max() > 0  # genuinely stale, not equal
     for ba, bb in beams:  # tracker/MISO path untouched by decimation
         np.testing.assert_allclose(bb, ba, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("heatmap_every", [0, 1, 3])
+def test_process_blocks_matches_per_block_fused(heatmap_every):
+    """The deployment profile's fused tracker+MISO step: one scanned
+    dispatch (process_blocks) gives the per-block outputs of
+    process_block, with the heatmap off (0), every block, and decimated."""
+    import dataclasses
+
+    base = Config(mimo=MimoConfig(rows=12, columns=12),
+                  tracker=TrackerConfig(n_seekers=8, n_trackers=4,
+                                        seeker_reset_interval=4)).realtime()
+    cfg = dataclasses.replace(
+        base, mimo=dataclasses.replace(base.mimo,
+                                       heatmap_every=max(heatmap_every, 1)))
+    blocks = np.stack(_blocks(ant.create_antenna_grid(), 7))
+    kw = dict(seed=2, enable_mimo=heatmap_every > 0)
+    a = AwpuPipeline(cfg, **kw)
+    per_block = [a.process_block(b) for b in blocks]
+    b = AwpuPipeline(cfg, **kw)
+    stacked = b.process_blocks(blocks)
+    for i, out in enumerate(per_block):
+        np.testing.assert_allclose(
+            np.asarray(stacked.powers[i]), np.asarray(out.powers),
+            rtol=1e-5, atol=1e-12,
+        )
+        np.testing.assert_array_equal(
+            np.asarray(stacked.targets.valid[i]), np.asarray(out.targets.valid)
+        )
+        np.testing.assert_allclose(
+            np.asarray(stacked.targets.theta[i]),
+            np.asarray(out.targets.theta), atol=1e-5,
+        )
+        scale = max(float(np.abs(np.asarray(out.miso_beam)).max()), 1e-12)
+        np.testing.assert_allclose(
+            np.asarray(stacked.miso_beam[i]) / scale,
+            np.asarray(out.miso_beam) / scale, atol=1e-5,
+        )
+    assert int(np.asarray(b.state.block_index)) == len(blocks)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu", "rocm"])
+def test_realtime_profile_ignores_backend(monkeypatch, backend):
+    """Config.realtime() is one profile whatever device JAX runs on."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    cfg = Config().realtime()
+    assert cfg == Config().realtime()
+    assert cfg.dsp.compute == cfg.dsp.probe_compute == "bfloat16"
+    assert (cfg.mimo.backend, cfg.mimo.heatmap_every) == ("fft", 3)
+    assert cfg.tracker.iterations == 2

@@ -10,6 +10,7 @@ from beamforming_lk_tpu.models import mimo as mm
 from beamforming_lk_tpu.ops import antenna as ant
 from beamforming_lk_tpu.ops import delay as dl
 from beamforming_lk_tpu.ops import fft_das as fd
+from tests.reference_impl import fft_das_power_ref
 
 ACFG = ArrayConfig()
 DCFG = DspConfig()
@@ -20,19 +21,9 @@ def _brute_force_fft_powers(window, points, mimo_cfg, dsp, arr, mask=None):
     non-separable reference the fast path must reproduce."""
     theta, phi = mm.make_mimo_grid(mimo_cfg)
     delays = ant.steering_delays_np(points, theta, phi, arr.samples_per_meter)
-    s, t = dsp.shift_range, dsp.block_size
-    taps = dl.LINEAR_TAPS
-    L = s + t
-    f = np.arange(L // 2 + 1)
-    x = np.fft.rfft(np.asarray(window), n=L, axis=-1)     # [C, F]
-    if mask is not None:
-        x = x * np.asarray(mask)[:, None]
-    shift = (s - taps) + 1 - delays                        # [D, C]
-    phase = np.exp(2j * np.pi * f[None, None, :] * shift[..., None] / L)
-    beam = np.fft.irfft((phase * x[None]).sum(axis=1), n=L, axis=-1)[:, :t]
-    bp = 0.5 * beam[:, 1:-1] - 0.25 * (beam[:, 2:] + beam[:, :-2])
-    n_act = points.shape[1] if mask is None else float(np.sum(mask))
-    return (bp**2).sum(axis=1) / (t * n_act)
+    return fft_das_power_ref(
+        window, delays, dsp.shift_range, dsp.block_size, dl.LINEAR_TAPS, mask
+    )
 
 
 def test_lattice_factorization_grid_and_cluster():
@@ -291,10 +282,10 @@ def test_awpu_step_fft_backend():
 
 
 def test_power_paths_agree():
-    # "fused" (default) and "pallas" contract the steered spectra straight
-    # against the bandpass-folded restricted inverse DFT; "beam" is the
-    # reference-shaped formulation.  All three are the same linear map —
-    # they must agree to float round-off on every configuration knob.
+    # "fused" (default) contracts the steered spectra straight against the
+    # bandpass-folded restricted inverse DFT; "beam" is the reference-shaped
+    # formulation.  Both are the same linear map — they must agree to float
+    # round-off on every configuration knob.
     import dataclasses as dc
 
     mimo = MimoConfig(rows=12, columns=12, fov_degrees=150.0)
@@ -325,14 +316,11 @@ def test_power_paths_agree():
                             window, dc.replace(base, power_path=path)
                         )
                     )
-                    for path in ("beam", "fused", "pallas")
+                    for path in ("beam", "fused")
                 }
                 tol = 5e-3 if kw.get("compute") == "bfloat16" else 1e-4
                 np.testing.assert_allclose(
                     got["fused"], got["beam"], rtol=tol, atol=1e-12
-                )
-                np.testing.assert_allclose(
-                    got["pallas"], got["fused"], rtol=tol, atol=1e-12
                 )
 
 
@@ -361,8 +349,8 @@ def test_lattice_order_model_skips_perm_matmul():
 
 
 def test_chunked_powers_match_per_window():
-    # fft_heatmap_powers_chunked == vmap(fft_heatmap_powers) for every
-    # power path (the pallas path runs interpret off-TPU).
+    # fft_heatmap_powers_chunked == vmap(fft_heatmap_powers), in f32 and
+    # bf16.
     import jax
 
     mimo = MimoConfig(rows=10, columns=10, fov_degrees=120.0)
@@ -373,13 +361,13 @@ def test_chunked_powers_match_per_window():
             (4, 64, DCFG.shift_range + DCFG.block_size)
         ).astype(np.float32)
     )
-    for path in ("fused", "pallas"):
+    for compute in ("float32", "bfloat16"):
         model = fd.make_fft_heatmap_model(
-            pts, mimo, DCFG, ACFG, power_path=path
+            pts, mimo, DCFG, ACFG, compute=compute
         )
         want = np.asarray(
             jax.vmap(lambda w: fd.fft_heatmap_powers(w, model))(wins)
         )
         got = np.asarray(fd.fft_heatmap_powers_chunked(wins, model))
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-12,
-                                   err_msg=path)
+                                   err_msg=compute)

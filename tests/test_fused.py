@@ -1,7 +1,7 @@
 """Parity of the fused swarm+MISO monopulse chain with the unfused impls.
 
 ``make_fused_step_impl`` batches tracker sub-step, seeker, and MISO-refine
-probe evaluations into shared DAS dispatches (extra MXU rows).  Per-row
+probe evaluations into shared DAS dispatches (extra matmul rows).  Per-row
 matmul results are independent of the other rows in a batch, so every
 particle's trajectory must match the unfused
 ``make_swarm_step_impl`` + ``make_miso_step_impl`` composition exactly.
@@ -98,90 +98,6 @@ def test_awpu_uses_fused_path_and_tracks():
     )
     assert d.min() < 10.0
     assert float(np.abs(np.asarray(out.miso_beam)).max()) > 0.0
-
-
-def test_fused_chunk_scan_matches_per_block_scan():
-    """The app-level chunked fused path (DspConfig.fused_chunk: K blocks
-    per swarm_chunk_pallas call + per-chunk batched heatmap decimation)
-    produces per-block outputs identical to the per-block scan."""
-    import dataclasses
-
-    import numpy as np
-
-    from beamforming_lk_tpu.app import awpu_init, make_awpu_step
-    from beamforming_lk_tpu.config import Config, DspConfig, MimoConfig
-
-    pts = ant.create_antenna_grid(8, 8, 0.02)
-    base = Config(
-        mimo=MimoConfig(rows=12, columns=12, heatmap_every=3),
-        tracker=TrackerConfig(
-            n_seekers=8, n_trackers=4, iterations=2,
-            probe_kernel="pallas", seeker_reset_interval=4,
-        ),
-    )
-    cfg_chunk = dataclasses.replace(
-        base, dsp=dataclasses.replace(base.dsp, fused_chunk=6)
-    )
-    blocks = jnp.stack(list(synthetic_blocks(pts, SOURCES, 12,
-                                             amplitude=1e-2)))
-    step_a = make_awpu_step(pts, base)
-    step_b = make_awpu_step(pts, cfg_chunk)
-    state_a = awpu_init(base, 64, seed=1)
-    state_b = awpu_init(cfg_chunk, 64, seed=1)
-    state_a, out_a = step_a.scan(state_a, blocks)
-    state_b, out_b = step_b.scan(state_b, blocks)
-    np.testing.assert_array_equal(
-        np.asarray(out_b.targets.valid), np.asarray(out_a.targets.valid)
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_b.targets.theta), np.asarray(out_a.targets.theta),
-        atol=1e-5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_b.powers), np.asarray(out_a.powers),
-        rtol=1e-5, atol=1e-8,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_b.prev_max), np.asarray(out_a.prev_max), rtol=1e-5
-    )
-    scale = max(float(np.abs(np.asarray(out_a.miso_beam)).max()), 1e-12)
-    np.testing.assert_allclose(
-        np.asarray(out_b.miso_beam) / scale,
-        np.asarray(out_a.miso_beam) / scale, atol=1e-5,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(state_b.swarm.tracking), np.asarray(state_a.swarm.tracking)
-    )
-    assert int(np.asarray(state_b.block_index)) == 12
-
-
-def test_fused_chunk_vmem_gate_falls_back(capsys):
-    """A chunk whose VMEM-resident windows exceed the budget (large
-    apertures: span*C scales with channels) is refused with a stderr note
-    and the step silently uses the per-block path (app/awpu.py gate)."""
-    import dataclasses
-
-    from beamforming_lk_tpu.app import awpu_init, make_awpu_step
-    from beamforming_lk_tpu.config import Config, DspConfig, MimoConfig
-    from beamforming_lk_tpu.ops import antenna as ant_ops
-
-    pts = ant_ops.multi_array_cluster(256, 8, 8, 0.02)
-    cfg = Config(
-        dsp=DspConfig(fused_chunk=48, shift_range=128, history=2048),
-        mimo=MimoConfig(rows=8, columns=8),
-        tracker=TrackerConfig(iterations=2, probe_kernel="pallas",
-                              n_seekers=4, n_trackers=2),
-    )
-    step = make_awpu_step(pts, cfg)
-    err = capsys.readouterr().err
-    assert "VMEM" in err and "per-block fused step" in err
-    # And the step still runs (per-block path).
-    state = awpu_init(cfg, 256, seed=0)
-    blocks = jnp.stack(list(synthetic_blocks(
-        pts, SOURCES, 2, amplitude=1e-2
-    )))
-    state, out = step.scan(state, blocks)
-    assert np.isfinite(np.asarray(out.prev_max)).all()
 
 
 def test_fused_step_requires_enough_slots():

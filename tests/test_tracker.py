@@ -2,6 +2,7 @@ import math
 
 import jax
 import numpy as np
+import pytest
 
 from beamforming_lk_tpu.config import ArrayConfig, DspConfig, TrackerConfig
 from beamforming_lk_tpu.io import ring_init, ring_push, ring_window
@@ -200,27 +201,103 @@ def test_tracker_converges_with_horizontal_probes():
     assert d.min() < 10.0, f"closest tracker {d.min():.1f} deg away"
 
 
-def test_pallas_chain_fallback_emits_note(capsys):
-    """probe_kernel='pallas' outside the kernel's coverage (only sharded
-    channels remain) falls back to the XLA chain WITH a one-line stderr
-    note (mirrors the fft->dense heatmap note)."""
-    from beamforming_lk_tpu.config import ArrayConfig, DspConfig, TrackerConfig
-    from beamforming_lk_tpu.models.tracker import make_swarm_step_impl
+def _history_and_window(interp, n_blocks=5):
+    """A filled ring history (source + noise) and the step's DAS window."""
+    from beamforming_lk_tpu.io import ring as rg
 
-    make_swarm_step_impl(
-        TrackerConfig(probe_kernel="pallas"), DspConfig(), ArrayConfig(),
-        axis_name="ch",
+    dsp = DspConfig(interp=interp)
+    taps = 2 if interp == "linear" else dsp.fir_taps
+    pts = ant.create_antenna_grid(8, 8, 0.02)
+    hist = ring_init(64, dsp.history)
+    for b in synthetic_blocks(pts, [(0.45, 1.3, 4500.0)], n_blocks,
+                              noise_std=0.3):
+        hist = ring_push(hist, b)
+    window = ring_window(hist, dsp.block_size, dsp.shift_range, taps)
+    b0 = rg.block_start(dsp.history, dsp.block_size)
+    return dsp, pts, np.asarray(hist, np.float64), window, b0
+
+
+def _das_block_ref(hist, pts, theta, phi, b0, dsp, bank):
+    from tests import reference_impl as ref
+
+    delays = ref.steering_delays_ref(pts, theta, phi, ACFG.samples_per_meter)
+    if dsp.interp == "linear":
+        return ref.das_ref(hist, delays, b0, dsp.block_size)
+    return ref.das_fir_ref(hist, delays, b0, dsp.block_size, bank)
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+@pytest.mark.parametrize("layout", ["quadrant", "horizontal"])
+def test_monopulse_step_matches_reference(layout, interp):
+    """One XLA monopulse step (the tracker chain's unit) against the loop
+    reference: probe directions by explicit rotation, probe beams by
+    das_ref / das_fir_ref, bandpassed powers, discriminants."""
+    from beamforming_lk_tpu.ops import delay as dl
+    from tests import reference_impl as ref
+
+    dsp, pts, hist, window, b0 = _history_and_window(interp)
+    bank = dl.fractional_delay_fir_bank(dsp.fir_phases, dsp.fir_taps)
+    rng = np.random.default_rng(4)
+    theta = rng.uniform(0.1, 1.2, 5).astype(np.float32)
+    phi = rng.uniform(0.0, 2 * np.pi, 5).astype(np.float32)
+    spread = np.float32(np.radians(7.0))
+    z = np.zeros_like(theta)
+    out = trk._monopulse_step(
+        trk.Particles(theta, phi, z, z, z, z), np.ones(5, bool),
+        window=window, points=pts, channel_mask=None, rate=0.0,
+        spread=spread, theta_limit=TrackerConfig().theta_limit,
+        shift_range=dsp.shift_range, mode=interp,
+        fir_bank=None if interp == "linear" else bank,
+        samples_per_meter=ACFG.samples_per_meter, probe_layout=layout,
     )
-    err = capsys.readouterr().err
-    assert "pallas" in err and "unavailable" in err and "sharded" in err
+    for i in range(5):
+        probes, _ = ref.monopulse_probes_ref(
+            float(theta[i]), float(phi[i]), float(spread), layout
+        )
+        q = [
+            ref.bandpass_power_ref(
+                _das_block_ref(hist, pts, pt, pp, b0, dsp, bank),
+                dsp.block_size, dsp.block_size,
+            )
+            for pt, pp in probes
+        ]
+        if layout == "quadrant":
+            total = sum(q)
+            g_theta = ((q[0] + q[1]) - (q[2] + q[3])) / total
+            g_phi = ((q[0] + q[3]) - (q[1] + q[2])) / total
+        else:
+            g_theta = (q[0] - q[2]) / max(q[0], q[2])
+            g_phi = (q[1] - q[3]) / max(q[1], q[3])
+        np.testing.assert_allclose(
+            float(out.radius[i]), sum(q) / 4.0, rtol=1e-4
+        )
+        np.testing.assert_allclose(
+            [float(out.grad_theta[i]), float(out.grad_phi[i])],
+            [g_theta, g_phi], atol=1e-4,
+        )
 
-    # Supported configurations stay silent — FIR interpolation and the
-    # horizontal N/E/S/W probe layout are in-kernel since round 4.
-    for cfg, dsp in (
-        (TrackerConfig(probe_kernel="pallas"), DspConfig(interp="fir")),
-        (TrackerConfig(probe_kernel="pallas", probe_layout="horizontal"),
-         DspConfig()),
-        (TrackerConfig(probe_kernel="pallas"), DspConfig()),
-    ):
-        make_swarm_step_impl(cfg, dsp, ArrayConfig())
-        assert "unavailable" not in capsys.readouterr().err
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+def test_fused_step_miso_beam_matches_reference(interp):
+    """The MISO audio beam the fused step emits is the DAS beam at the
+    refined listener direction."""
+    import jax.numpy as jnp
+
+    from beamforming_lk_tpu.models import miso as ms
+    from beamforming_lk_tpu.ops import delay as dl
+
+    dsp, pts, hist, window, b0 = _history_and_window(interp)
+    bank = dl.fractional_delay_fir_bank(dsp.fir_phases, dsp.fir_taps)
+    cfg = TrackerConfig(n_seekers=8, n_trackers=4, iterations=2)
+    fused = trk.make_fused_step_impl(cfg, dsp, ACFG)
+    state = trk.swarm_init(cfg, jax.random.PRNGKey(0))
+    listener = ms.miso_init(0.4, 1.2).particle
+    _, _, listener, beam = fused(
+        state, listener, window, np.int32(0), jnp.asarray(pts), None
+    )
+    want = _das_block_ref(hist, pts, float(listener.theta[0]),
+                          float(listener.phi[0]), b0, dsp, bank)
+    beam = np.asarray(beam, np.float64)
+    np.testing.assert_allclose(
+        beam / np.abs(want).max(), want / np.abs(want).max(), atol=1e-5
+    )

@@ -1,6 +1,7 @@
 """Rendering utilities and metrics."""
 
 import numpy as np
+import pytest
 
 from beamforming_lk_tpu.utils import (
     BlockMetrics,
@@ -188,3 +189,30 @@ def test_read_png_all_filters(tmp_path):
         f.write(chunk(b"IDAT", zlib.compress(bytes(raw))))
         f.write(chunk(b"IEND", b""))
     np.testing.assert_array_equal(read_png(path), img.astype(np.uint8))
+
+
+@pytest.mark.parametrize("env", [None, "/elsewhere/jax-cache"])
+def test_use_compile_cache(monkeypatch, env):
+    """The helper points JAX at <checkout>/.jax_cache, unless
+    JAX_COMPILATION_CACHE_DIR names a directory (then it sets nothing)."""
+    import os
+
+    import jax
+
+    from beamforming_lk_tpu.utils import compile_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+    try:
+        got = cc.use_compile_cache()
+        now = jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    if env is None:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == now == os.path.join(repo, ".jax_cache")
+    else:
+        assert got == env and now == before
